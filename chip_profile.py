@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time of the port's main path goes.
 
-Runs chip_smoke.py's main path (task = correct through the CLI entry on a
-simulated genome) under torch.profiler and prints the device-busy share of
+Runs chip_smoke.py's main path (task = all, stages 00-06, through the CLI
+entry on a simulated genome) under torch.profiler and prints the device-busy share of
 the wall time and the device time summed by kernel name.  Needs one CUDA
 device; the profiler slows the host side, so read shares, not walls.
 

@@ -10,20 +10,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   env        card name and power limit, torch and CUDA versions
   build      the CUDA kernels (csrc/*.cu, nvcc, sm_90a) and the host C++
              library, every compiler process started together
-  kernels    each hand-written kernel against its plain PyTorch version on
-             the card, exact equality of every output, on degenerate cases,
-             64 random 1-3 kb pairs and pairs with |m-n| > 200
-  main_path  task = correct (stages 00-03) through the package's CLI entry
-             on a simulated genome at 30x, with the launch counters set to
-             0 just before and read just after; checks the markers, the
-             share of corrected seeds and the identity of corrected reads
-  timing     each kernel at the main path's shape against its plain
-             version (exact equality again), with the least time the card
-             could take for the same work
+  kernels    each of the seven hand-written kernels against its plain
+             PyTorch version on the card, exact equality of every output,
+             on degenerate cases, 64 random 1-3 kb pairs and pairs with
+             |m-n| > 200 (tails of up to 1024 bases for the extender)
+  overlaps   find_overlaps on one fixed batch of reads gives identical
+             records on the card and on the CPU
+  fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
+             the CPU, with the launch counters set to 0 just before
+  ext_path   input_type = corrected, task = assemble (stages 00, 04-06)
+             through the CLI entry on ~1 % error reads of a 300 kb genome
+             with 5 kb repeats: reads that share only a repeat copy keep
+             unaligned tails on both sides, which stage 04 hands to the
+             affine-gap extender (on the repeat-free genome below it gets
+             none); launch counters set to 0 just before
+  main_path  task = all (stages 00-06) through the package's CLI entry on a
+             simulated genome at 30x, with the launch counters set to 0
+             just before and read just after; checks the markers, the
+             share of corrected seeds, the identity of corrected reads,
+             and the contigs against the simulated genome
+  timing     each kernel at its path's shape against its plain version
+             (exact equality again), with the least time the card could
+             take for the same work
 
 Without a CUDA device it exits non-zero and prints no result.  The last
 line of stdout is {"ok": true, "device": {...}}; the line before the card
-line holds {"kernels": [...]}.
+line holds {"kernels": [...]}: four kernels' launches are read from the
+task = all run, the extender's from the task = assemble run, the R = 1
+pair's from the band_align(R=1) run.
 """
 from __future__ import annotations
 
@@ -57,7 +71,19 @@ KERNEL_INFO = {
                      replaces="nextdenovo_tpu/ops/align.py:90"),
     "wave_tb": dict(source="nextdenovo_tpu_torch/csrc/wave.cu",
                     replaces="nextdenovo_tpu/ops/align.py:567"),
+    "ext_fwd": dict(source="nextdenovo_tpu_torch/csrc/extend.cu",
+                    replaces="nextdenovo_tpu/ops/extend.py:77"),
+    "wave_fast_fwd": dict(source="nextdenovo_tpu_torch/csrc/wave_fast.cu",
+                          replaces="nextdenovo_tpu/ops/align.py:286"),
+    "wave_fast_tb": dict(source="nextdenovo_tpu_torch/csrc/wave_fast.cu",
+                         replaces="nextdenovo_tpu/ops/align.py:765"),
 }
+# the path a kernel's launches are read from, where it is not the task = all
+# run
+FAST_PATH, EXT_PATH = "band_align(R=1)", "input_type = corrected, task = assemble"
+KERNEL_PATH = {"wave_fast_fwd": FAST_PATH, "wave_fast_tb": FAST_PATH,
+               "ext_fwd": EXT_PATH}
+FAST_PATH_KERNELS = ("wave_fast_fwd", "wave_fast_tb")
 
 
 def log(*a):
@@ -109,6 +135,55 @@ def skewed_pairs(rng, n=16):
             q, t = t, q
         qs.append(q)
         ts.append(t)
+    return qs, ts
+
+
+def ext_tail_pairs(rng, n, lo=33, hi=1024, full=0.5, err=0.02):
+    """Pairs of read tails as the overlap end-extension hands them to the
+    extender: equal lengths of lo..hi bases (a share `full` of them exactly
+    hi), a few per cent of differences, every fourth pair diverging half
+    way (the best endpoint then lies before (m, n))."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.simulate import mutate_read
+    qs, ts = [], []
+    for i in range(n):
+        L = hi if rng.random() < full else int(rng.integers(lo, hi + 1))
+        t = rng.integers(0, 4, L).astype(np.uint8)
+        q = mutate_read(t, err, rng)[:L]
+        if i % 4 == 2:
+            q = np.concatenate([q[: len(q) // 2],
+                                rng.integers(0, 4, L - len(q) // 2)])
+        qs.append(q.astype(np.int8))
+        ts.append(t.astype(np.int8))
+    return qs, ts
+
+
+def ext_skewed_pairs(rng, n=16):
+    """|m - n| > 200: (m, n) lies outside the extender's fixed band."""
+    import numpy as np
+    qs, ts = [], []
+    for i in range(n):
+        L = int(rng.integers(500, 1025))
+        t = rng.integers(0, 4, L).astype(np.int8)
+        q = t[: L - int(rng.integers(220, 400))].copy()
+        if i % 2:
+            q, t = t, q
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+def ext_degenerate_pairs(rng):
+    """m = 1, n = 1, identical, off-band, empty query, two-letter ties."""
+    import numpy as np
+    r = lambda n, k=4: rng.integers(0, k, n).astype(np.int8)
+    t200, t600 = r(200), r(600)
+    qs = [r(1), r(50), r(1), t200.copy(), t600[:100].copy(), t600,
+          np.zeros(0, np.int8)]
+    ts = [r(50), r(1), r(1), t200, t600, t600[:100].copy(), r(20)]
+    for _ in range(24):
+        qs.append(r(int(rng.integers(4, 40)), 2))
+        ts.append(r(int(rng.integers(4, 40)), 2))
     return qs, ts
 
 
@@ -185,34 +260,120 @@ def timed(fn, reps, warm=True):
     return out, s.elapsed_time(e) / reps
 
 
-def compare_kernels(qs, ts, dev, tag, reps=0):
-    """Run all four kernels and their plain versions on the tensors these
-    pairs give them.  Returns {kernel: dict(exact, max_abs_err[, ms,
-    plain_ms, bound...])}.  reps > 0 also times them."""
+def _record(res, tag, name, outs_k, outs_p, extra=None):
+    """Hold a kernel's outputs against its plain version's, exactly."""
+    exact, err = True, 0.0
+    for a, b in zip(outs_k, outs_p):
+        ok, d = _tensors_equal(a, b)
+        exact = exact and ok
+        err = max(err, d)
+    res[name] = dict(exact=exact, max_abs_err=err, **(extra or {}))
+    if not exact:
+        raise RuntimeError(f"kernel {name} disagrees with its plain "
+                           f"version on '{tag}' (max abs err {err})")
+
+
+def _run(fn_k, fn_p, reps):
+    """(kernel outputs, plain outputs, times when reps > 0)."""
     import torch
+    if reps:
+        ok_, ms = timed(fn_k, reps)
+        op_, pms = timed(fn_p, 1, warm=False)
+        return ok_, op_, dict(ms=ms, plain_ms=pms)
+    ok_ = fn_k()
+    torch.cuda.synchronize()
+    return ok_, fn_p(), {}
+
+
+def ext_inputs(qs, ts, dev):
+    """The tensors affine_extend_fwd hands its kernel for these pairs."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.ops import extend as E
+    m = np.array([len(q) for q in qs], np.int32)
+    n = np.array([len(t) for t in ts], np.int32)
+    to = lambda x: torch.from_numpy(x).to(dev)
+    return dict(qbuf=to(E.pad_for_extend(qs, int(m.max()))),
+                tbuf=to(E.pad_for_extend(ts, int(n.max()))),
+                mn=to(np.stack([m, n], axis=1)), m_np=m, n_np=n)
+
+
+def compare_ext_kernel(qs, ts, dev, tag, reps=0):
+    """ext_fwd against ext_fwd_plain on these pairs' tensors."""
+    from nextdenovo_tpu_torch.ops import extend as E
+    res = {}
+    ei = ext_inputs(qs, ts, dev)
+    B = len(qs)
+    k, p, t = _run(lambda: E.ext_fwd(ei["qbuf"], ei["tbuf"], ei["mn"]),
+                   lambda: E.ext_fwd_plain(ei["qbuf"], ei["tbuf"], ei["mn"]),
+                   reps)
+    diags = int((ei["m_np"] + ei["n_np"] + 1).sum())
+    byt = int((ei["m_np"] + ei["n_np"]).sum()) + B * (8 + 3 * E.LANES * 4)
+    ops = diags * E.LANES * 30
+    _record(res, tag, "ext_fwd", (k,), (p,), dict(
+        t, shape=f"B={B} mean m+n={diags / max(1, B) - 1:.0f} "
+                 f"max m+n={int((ei['m_np'] + ei['n_np']).max())}",
+        **_bound(byt, ops)))
+    return res
+
+
+def fast_inputs(qs, ts, dev):
+    """The tensors _band_align_R(R=1) hands its two kernels."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    m = np.array([len(q) for q in qs], np.int32)
+    n = np.array([len(t) for t in ts], np.int32)
+    n_words = (int((m + n).max()) + 1 + A.PACK - 1) // A.PACK
+    qpad = A.pad_for_align(qs, int(m.max()), A.FAST_W)
+    rtpad = A.pad_for_align([np.asarray(t)[::-1] for t in ts], int(n.max()),
+                            A.FAST_W, front=A.T_FRONT)
+    to = lambda x: torch.from_numpy(x).to(dev)
+    return dict(qpad=to(qpad), rtpad=to(rtpad),
+                mn=to(np.stack([m, n], axis=1)), n_words=n_words,
+                m_np=m, n_np=n)
+
+
+def compare_fast_kernels(qs, ts, dev, tag, reps=0):
+    """wave_fast_fwd / wave_fast_tb against their plain versions."""
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    res = {}
+    fi = fast_inputs(qs, ts, dev)
+    B, nwd = len(qs), fi["n_words"]
+    diags = int((fi["m_np"] + fi["n_np"] + 1).sum())
+    wk, wp, t = _run(
+        lambda: A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"], nwd),
+        lambda: A.wave_fast_fwd_plain(fi["qpad"], fi["rtpad"], fi["mn"], nwd),
+        reps)
+    defined = A.wave_fwd_defined(fi["mn"], nwd)
+    tb_k = torch.where(defined[:, :, None], wk[0], 0)
+    base_k = torch.where(defined, wk[1], 0)
+    byt = diags * (32 + 1) + int((fi["m_np"] + fi["n_np"]).sum()) * 4 + B * 16
+    ops = diags * A.FAST_W * 35
+    _record(res, tag, "wave_fast_fwd", (tb_k, base_k, wk[2]), wp, dict(
+        t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
+    bk, bp, t = _run(lambda: A.wave_fast_tb(wk[0], wk[1], fi["mn"]),
+                     lambda: A.wave_fast_tb_plain(wk[0], wk[1], fi["mn"]),
+                     reps)
+    steps = int((bk[0] != A.OP_NONE).sum().item())     # walk steps taken
+    byt = steps * 8 + B * nwd * A.PACK + B * 9
+    ops = steps * 20
+    _record(res, tag, "wave_fast_tb", bk, bp, dict(
+        t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
+    return res
+
+
+def compare_kernels(qs, ts, dev, tag, reps=0):
+    """Run the Myers and wide-band wavefront kernels and their plain
+    versions on the tensors these pairs give them.  Returns {kernel:
+    dict(exact, max_abs_err[, ms, plain_ms, bound...])}.  reps > 0 also
+    times them."""
     from nextdenovo_tpu_torch.ops import align as A
     from nextdenovo_tpu_torch.ops import myers as M
     res = {}
-
-    def record(name, outs_k, outs_p, extra=None):
-        exact, err = True, 0.0
-        for a, b in zip(outs_k, outs_p):
-            ok, d = _tensors_equal(a, b)
-            exact = exact and ok
-            err = max(err, d)
-        res[name] = dict(exact=exact, max_abs_err=err, **(extra or {}))
-        if not exact:
-            raise RuntimeError(f"kernel {name} disagrees with its plain "
-                               f"version on '{tag}' (max abs err {err})")
-
-    def run(fn_k, fn_p):
-        if reps:
-            ok_, ms = timed(fn_k, reps)
-            op_, pms = timed(fn_p, 1, warm=False)
-            return ok_, op_, dict(ms=ms, plain_ms=pms)
-        ok_ = fn_k()
-        torch.cuda.synchronize()
-        return ok_, fn_p(), {}
+    record = lambda *a: _record(res, tag, *a)
+    run = lambda fn_k, fn_p: _run(fn_k, fn_p, reps)
 
     nw = 8
     mi = myers_inputs(qs, ts, dev, nw)
@@ -245,7 +406,7 @@ def compare_kernels(qs, ts, dev, tag, reps=0):
         lambda: A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"], nwd),
         lambda: A.wave_fwd_plain(wi["qpad"], wi["rtpad"], wi["mn"], nwd))
     defined = A.wave_fwd_defined(wi["mn"], nwd)[:, :, None]
-    tb_k = torch.where(defined, wk[0], 0)
+    tb_k = wk[0] * defined
     byt = diags * (64 + 4) + int((wi["m_np"] + wi["n_np"]).sum()) * 4 + B * 16
     ops = diags * A.BAND_W * 40
     record("wave_fwd", (tb_k, wk[1], wk[2]), wp, dict(
@@ -275,6 +436,7 @@ def compare_results(qs, ts, dev, tag):
     from nextdenovo_tpu_torch.ops.myers import myers_align
     for name, fn in (("myers_align", lambda d: myers_align(qs, ts, device=d)),
                      ("band_align R=2", lambda d: band_align(qs, ts, R=2, device=d)),
+                     ("band_align R=1", lambda d: band_align(qs, ts, R=1, device=d)),
                      ("band_align", lambda d: band_align(qs, ts, device=d))):
         a, b = fn(dev), fn("cpu")
         for i, (x, y) in enumerate(zip(a, b)):
@@ -285,6 +447,19 @@ def compare_results(qs, ts, dev, tag):
                                    f"plain version on '{tag}' pair {i}")
         log(f"  {tag}: {name}: {len(a)} pairs equal "
             f"({sum(r['ok'] for r in a)} ok)")
+
+
+def compare_extend_results(qs, ts, dev, tag):
+    """affine_extend's end results: card vs the plain version on the CPU."""
+    from nextdenovo_tpu_torch.ops.extend import affine_extend
+    a, b = affine_extend(qs, ts, device=dev), affine_extend(qs, ts, device="cpu")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            raise RuntimeError(f"affine_extend differs between the card and "
+                               f"the plain version on '{tag}' pair {i}: "
+                               f"{x} != {y}")
+    log(f"  {tag}: affine_extend: {len(a)} pairs equal "
+        f"({sum(r['reached'] for r in a)} reached (m, n))")
 
 
 # --------------------------------------------------------------------------
@@ -320,37 +495,199 @@ def phase_kernels(dev):
             ("|m-n| > 200", skewed_pairs(rng))]
     for tag, (qs, ts) in sets:
         r = compare_kernels(qs, ts, dev, tag)
+        r.update(compare_fast_kernels(qs, ts, dev, tag))
         log(f"[kernels] {tag}: " + ", ".join(
             f"{k} exact={v['exact']}" for k, v in r.items()))
         compare_results(qs, ts, dev, tag)
+    ext_sets = [("extender degenerate", ext_degenerate_pairs(rng)),
+                ("extender 256 tails <= 1024", ext_tail_pairs(rng, 256)),
+                ("extender |m-n| > 200", ext_skewed_pairs(rng))]
+    for tag, (qs, ts) in ext_sets:
+        r = compare_ext_kernel(qs, ts, dev, tag)
+        log(f"[kernels] {tag}: " + ", ".join(
+            f"{k} exact={v['exact']}" for k, v in r.items()))
+        compare_extend_results(qs, ts, dev, tag)
 
 
-def phase_main_path(dev, genome_size, workdir):
-    """Simulate reads, run task = correct through the CLI entry, check the
-    outcome.  Returns (launch counts, facts for the report)."""
+def phase_overlaps(dev):
+    """find_overlaps on one fixed batch of reads: the card's records against
+    the CPU's, every field (the vote scoring takes a float32 log2)."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    from nextdenovo_tpu_torch.overlap.engine import build_index, find_overlaps
+    g = simulate_genome(60_000, seed=21)
+    sim = simulate_reads(g, coverage=20, mean_len=6000, error_rate=0.10,
+                         seed=22)
+    store = SeqStore.from_codes(sim.reads)
+    rids = np.arange(len(store))
+    blocks = {}
+    for d in (dev, "cpu"):
+        t0 = time.time()
+        idx = build_index(store, rids, k=17, w=10, max_occ=64, device=d)
+        blocks[str(d)] = find_overlaps(
+            store, rids, idx, k=17, w=10, max_occ=16, min_cnt=4, min_span=500,
+            top_k=4, query_mask=np.ones(len(store), bool), device=d)
+        log(f"[overlaps] {d}: {len(blocks[str(d)])} records from "
+            f"{len(store)} reads in {time.time() - t0:.1f}s")
+    a, b = blocks[str(dev)], blocks["cpu"]
+    if len(a) == 0:
+        raise RuntimeError("find_overlaps gave no records on the fixed batch")
+    if sorted(a.data) != sorted(b.data) or len(a) != len(b):
+        raise RuntimeError(f"find_overlaps: {len(a)} records on the card, "
+                           f"{len(b)} on the CPU")
+    for k in sorted(a.data):
+        x, y = np.asarray(a.data[k]), np.asarray(b.data[k])
+        if not np.array_equal(x, y):
+            i = int(np.nonzero(x != y)[0][0])
+            raise RuntimeError(
+                f"find_overlaps differs between the card and the CPU: field "
+                f"{k} record {i}: {x[i]} != {y[i]} (genome seed 21, reads "
+                f"seed 22)")
+    log(f"[overlaps] card == cpu: {len(a)} records, fields "
+        f"{sorted(a.data)} identical")
+
+
+def phase_fast_path(dev):
+    """band_align(R=1) through the package's entry on a few hundred ~2 kb
+    pairs: the card against the CPU.  Returns the launch counts of the
+    card's call."""
+    import numpy as np
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops.align import band_align
+    rng = np.random.default_rng(13)
+    qs, ts = make_pairs(rng, 256, 1500, 2500)
+    _build.reset_launches()
+    t0 = time.time()
+    a = band_align(qs, ts, R=1, device=dev)
+    wall = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    b = band_align(qs, ts, R=1, device="cpu")
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not (x["dist"] == y["dist"] and x["ok"] == y["ok"]
+                and x["reached"] == y["reached"]
+                and np.array_equal(x["ops"], y["ops"])):
+            raise RuntimeError(f"band_align(R=1) differs between the card "
+                               f"and the CPU on pair {i}")
+    n_ok = sum(r["ok"] and r["reached"] for r in a)
+    log(f"[fast_path] band_align(R=1): {len(a)} pairs equal on card and "
+        f"CPU, {n_ok} ok, card call {wall:.2f}s, launches "
+        f"{json.dumps({k: launches[k] for k in FAST_PATH_KERNELS})}")
+    for k in FAST_PATH_KERNELS:
+        if launches[k] == 0:
+            raise RuntimeError(f"kernel {k} was not launched by "
+                               "band_align(R=1)")
+    if n_ok < 0.9 * len(a):
+        raise RuntimeError(f"band_align(R=1): only {n_ok}/{len(a)} pairs ok")
+    return launches
+
+
+def _write_run(workdir, reads, cfg_text):
+    """reads.fa, input.fofn and run.cfg under workdir; returns the cfg path."""
+    from nextdenovo_tpu_torch.io.fastx import write_fasta
+    write_fasta(os.path.join(workdir, "reads.fa"),
+                [(f"r{i}", r) for i, r in enumerate(reads)])
+    with open(os.path.join(workdir, "input.fofn"), "w") as fh:
+        fh.write("reads.fa\n")
+    cfg_p = os.path.join(workdir, "run.cfg")
+    with open(cfg_p, "w") as fh:
+        fh.write(cfg_text)
+    return cfg_p
+
+
+def _extender_work(tracer):
+    """(tail pairs, mean m + n) that the run handed to affine_extend."""
+    spans = [s_ for s_ in tracer.spans if s_.name == "kernel/affine_extend"]
+    pairs = int(sum(s_.attrs["pairs"] for s_ in spans))
+    cells = int(sum(s_.attrs["band_cells"] for s_ in spans))
+    return pairs, (cells / 128 / pairs - 1 if pairs else 0.0)
+
+
+def phase_ext_path(dev, workdir, genome_size=300_000):
+    """input_type = corrected, task = assemble through the CLI entry on
+    reads of a genome with repeats.  Returns (launch counts, tail pairs,
+    their mean m + n)."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.__main__ import main as cli_main
-    from nextdenovo_tpu_torch.io.fastx import write_fasta
-    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.fastx import read_fastx
+    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    from nextdenovo_tpu_torch.utils import get_tracer
+    from nextdenovo_tpu_torch.utils.asm_metrics import (kmer_identity,
+                                                         misassembly_count)
+    genome = simulate_genome(genome_size, seed=5, repeat_frac=0.1,
+                             repeat_len=5000)
+    sim = simulate_reads(genome, coverage=15, mean_len=MEAN_LEN,
+                         error_rate=0.01, seed=6)
+    cfg_p = _write_run(
+        workdir, sim.reads,
+        "[General]\ntask = assemble\ninput_type = corrected\n"
+        "read_type = ont\ninput_fofn = input.fofn\nworkdir = wd\n"
+        f"[correct_option]\ngenome_size = {genome_size}\n")
+    tracer = get_tracer()
+    tracer.reset()
+    _build.reset_launches()
+    t0 = time.time()
+    rc = cli_main(["run", cfg_p])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"CLI entry returned {rc}")
+    wd = os.path.join(workdir, "wd")
+    for st in ("00.db", "04.cns_align", "05.ctg_graph", "06.ctg_cns"):
+        if not os.path.exists(os.path.join(wd, st, ".done")):
+            raise RuntimeError(f"stage {st} left no .done marker")
+    pairs, mean_mn = _extender_work(tracer)
+    log(f"[ext_path] task=assemble on {len(sim.reads)} corrected reads of a "
+        f"{genome_size} bp genome with repeats: wall {wall:.1f}s, launches "
+        f"{json.dumps(launches)}; stage 04 handed the extender {pairs} tail "
+        f"pairs, mean m+n {mean_mn:.0f}")
+    if launches["ext_fwd"] < 1 or pairs < 1:
+        raise RuntimeError("kernel ext_fwd was not launched by stage 04")
+    contigs = [c for _, c in read_fastx(os.path.join(wd, "06.ctg_cns",
+                                                     "nd.asm.fasta"))]
+    if not contigs:
+        raise RuntimeError("task = assemble produced no contig")
+    lens_c = np.array([len(c) for c in contigs])
+    kid = kmer_identity(contigs, [genome])
+    log(f"[ext_path] contigs {len(contigs)}, total {int(lens_c.sum())}, "
+        f"longest {int(lens_c.max())}; 31-mer identity {kid:.4f}; "
+        f"misassemblies {json.dumps(misassembly_count(contigs, genome))}")
+    if kid < 0.9:
+        raise RuntimeError(f"contig 31-mer identity {kid:.4f} below 0.9")
+    if not 0.5 * genome_size < lens_c.sum() < 1.6 * genome_size:
+        raise RuntimeError(f"contig total {int(lens_c.sum())} outside "
+                           f"0.5-1.6 x genome")
+    return launches, pairs, mean_mn
+
+
+def phase_main_path(dev, genome_size, workdir):
+    """Simulate reads, run task = all through the CLI entry, check the
+    corrected reads and the contigs.  Returns (launch counts, facts for the
+    report)."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.__main__ import main as cli_main
+    from nextdenovo_tpu_torch.io.fastx import read_fastx
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore, stat_n50
     from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
     from nextdenovo_tpu_torch.ops.align import band_align
     from nextdenovo_tpu_torch.utils import get_tracer
+    from nextdenovo_tpu_torch.utils.asm_metrics import (kmer_identity,
+                                                         misassembly_count)
 
     t0 = time.time()
     genome = simulate_genome(genome_size, seed=1)
     sim = simulate_reads(genome, coverage=COVERAGE, mean_len=MEAN_LEN,
                          error_rate=ERROR_RATE, seed=2)
-    write_fasta(os.path.join(workdir, "reads.fa"),
-                [(f"r{i}", r) for i, r in enumerate(sim.reads)])
-    with open(os.path.join(workdir, "input.fofn"), "w") as fh:
-        fh.write("reads.fa\n")
-    cfg_p = os.path.join(workdir, "run.cfg")
-    with open(cfg_p, "w") as fh:
-        fh.write("[General]\ntask = correct\ninput_type = raw\n"
-                 "read_type = ont\ninput_fofn = input.fofn\nworkdir = wd\n"
-                 f"[correct_option]\ngenome_size = {genome_size}\n")
+    cfg_p = _write_run(
+        workdir, sim.reads,
+        "[General]\ntask = all\ninput_type = raw\n"
+        "read_type = ont\ninput_fofn = input.fofn\nworkdir = wd\n"
+        f"[correct_option]\ngenome_size = {genome_size}\n")
     log(f"[main_path] simulated {len(sim.reads)} reads, "
         f"{sum(len(r) for r in sim.reads)} bases in {time.time() - t0:.1f}s")
 
@@ -367,7 +704,7 @@ def phase_main_path(dev, genome_size, workdir):
     peak = torch.cuda.max_memory_allocated()
     if rc != 0:
         raise RuntimeError(f"CLI entry returned {rc}")
-    log(f"[main_path] task=correct wall {wall:.1f}s, peak device memory "
+    log(f"[main_path] task=all wall {wall:.1f}s, peak device memory "
         f"{peak / 2**20:.0f} MiB, launches {json.dumps(launches)}")
     log("[main_path] spans:\n" + tracer.summary())
     retry_pairs = [int(s.attrs.get("pairs", 0)) for s in tracer.spans
@@ -381,9 +718,52 @@ def phase_main_path(dev, genome_size, workdir):
            "workload)"))
 
     wd = os.path.join(workdir, "wd")
-    for st in ("00.db", "01.raw_align", "02.sort_align", "03.seed_cns"):
+    stages = ("00.db", "01.raw_align", "02.sort_align", "03.seed_cns",
+              "04.cns_align", "05.ctg_graph", "06.ctg_cns")
+    for st in stages:
         if not os.path.exists(os.path.join(wd, st, ".done")):
             raise RuntimeError(f"stage {st} left no .done marker")
+    # launch counts at each stage's end (run.py records them as spans) and
+    # each stage's wall: the time between two markers' spans
+    marks = {s_.name[len("launches/"):]: s_ for s_ in tracer.spans
+             if s_.name.startswith("launches/")}
+    at = lambda st, k: int(marks[st].attrs[k])
+    prev_t = t0
+    for st in stages:
+        log(f"[main_path] stage {st}: wall {marks[st].t0 - prev_t:.1f}s, "
+            f"launches so far {json.dumps(marks[st].attrs)}")
+        prev_t = marks[st].t0
+    by_name = {}
+    for s_ in tracer.spans:
+        by_name.setdefault(s_.name, []).append(s_)
+    for name in ("cns_align", "ctg_graph", "ctg_align", "ctg_cns"):
+        if name not in by_name:
+            raise RuntimeError(f"span {name} was not recorded")
+        log(f"[main_path] span {name}: {by_name[name][0].wall:.1f}s "
+            f"{json.dumps(by_name[name][0].attrs)}")
+    # on this repeat-free genome every realigned overlap ends within 32
+    # bases of a read end, so stage 04 has no tail pair for the extender
+    # (phase_ext_path drives it)
+    ext_pairs, _ = _extender_work(tracer)
+    log(f"[main_path] stage 04 handed the extender {ext_pairs} tail pairs, "
+        f"{launches['ext_fwd']} launch(es)")
+    if (ext_pairs > 0) != (launches["ext_fwd"] > 0):
+        raise RuntimeError("extender calls and ext_fwd launches disagree")
+    for name in ("myers_fwd", "myers_tb"):
+        if at("06.ctg_cns", name) <= at("05.ctg_graph", name):
+            raise RuntimeError(f"stage 06 did not launch {name}")
+        if at("04.cns_align", name) <= at("03.seed_cns", name):
+            raise RuntimeError(f"stage 04 did not launch {name}")
+    t06 = marks["05.ctg_graph"].t0
+    retry06 = [s_ for s_ in by_name.get("kernel/band_retry", [])
+               if s_.t0 >= t06]
+    log(f"[main_path] stage 06 retry tier: "
+        f"{sum(int(s_.attrs['pairs']) for s_ in retry06)} pairs in "
+        f"{len(retry06)} calls")
+    for name in ("wave_fwd", "wave_tb"):
+        if retry06 and at("06.ctg_cns", name) <= at("05.ctg_graph", name):
+            raise RuntimeError(f"stage 06 retried pairs without launching "
+                               f"{name}")
     if not os.path.exists(os.path.join(wd, "03.seed_cns", "cns.fasta")):
         raise RuntimeError("cns.fasta missing")
     meta = json.load(open(os.path.join(wd, "00.db", "meta.json")))
@@ -435,15 +815,42 @@ def phase_main_path(dev, genome_size, workdir):
         f"{len(ide_r)} reads")
     if len(ide_c) < 0.9 * len(pick) or mc < 0.98:
         raise RuntimeError(f"corrected-read identity {mc:.4f} below 0.98")
+
+    # the assembly against the simulated genome
+    contigs = [c for _, c in read_fastx(os.path.join(wd, "06.ctg_cns",
+                                                     "nd.asm.fasta"))]
+    if not contigs:
+        raise RuntimeError("task = all produced no contig")
+    lens_c = np.array([len(c) for c in contigs])
+    st_c = stat_n50(lens_c)
+    total, longest = int(lens_c.sum()), int(lens_c.max())
+    kid = kmer_identity(contigs, [genome])
+    mis = misassembly_count(contigs, genome)
+    draft = SeqStore.load(os.path.join(wd, "05.ctg_graph", "draft"))
+    kid_draft = kmer_identity([draft.get(i) for i in range(len(draft))],
+                              [genome])
+    log(f"[main_path] contigs {len(contigs)}, N50 {st_c['N50'][0]}, total "
+        f"{total}, longest {longest} of a {len(genome)} bp genome; 31-mer "
+        f"identity {kid:.4f} (draft before polish {kid_draft:.4f}); "
+        f"misassemblies {json.dumps(mis)}")
+    if longest <= 0.6 * len(genome):
+        raise RuntimeError(f"longest contig {longest} <= 0.6 x genome")
+    if total >= 1.6 * len(genome):
+        raise RuntimeError(f"contig total {total} >= 1.6 x genome")
+    if kid < 0.9:
+        raise RuntimeError(f"contig 31-mer identity {kid:.4f} below 0.9")
     return launches, dict(wall_s=wall, peak_bytes=peak,
                           retry_pairs=max(retry_pairs, default=0))
 
 
-def phase_timing(dev, retry_pairs):
-    """Kernels at the main path's shape: a Myers sub-batch of 640 pairs of
-    up to 12288 columns (the correction driver's chunk limit and the
-    aligner's plane-memory bound), the wavefront pair on a retry batch."""
+def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
+    """Kernels at their path's shape: a Myers sub-batch of 640 pairs of up
+    to 12288 columns (the correction driver's chunk limit and the aligner's
+    plane-memory bound), the two wavefront pairs on a retry batch, the
+    extender on as many tail pairs, of the same mean length, as stage 04
+    handed it."""
     import numpy as np
+    from nextdenovo_tpu_torch.native import affine_extend_cpu
     rng = np.random.default_rng(11)
     qs, ts = make_pairs(rng, 640, 11000, 12288)
     r = compare_kernels(qs, ts, dev, "main-path shape (Myers)", reps=3)
@@ -452,7 +859,30 @@ def phase_timing(dev, retry_pairs):
     qs, ts = make_pairs(rng, nb, 11000, 12288)
     r = compare_kernels(qs, ts, dev, "main-path shape (wave)", reps=3)
     out.update({k: r[k] for k in ("wave_fwd", "wave_tb")})
+    # the R = 1 pair at 64 pairs of up to 12288 columns, like wave_*
+    qs, ts = make_pairs(rng, 64, 11000, 12288)
+    out.update(compare_fast_kernels(qs, ts, dev, "R=1 shape (wave_fast)",
+                                    reps=3))
+    # the extender: tails are min(1024, hang) long on both sides, so a
+    # pair's m + n is 2048 for the share `full` of full-length tails
+    lo, hi = 33, 1024
+    full = min(1.0, max(0.0, (ext_mean_mn / 2 - (lo + hi) / 2)
+                        / (hi - (lo + hi) / 2)))
+    qs, ts = ext_tail_pairs(rng, max(ext_pairs, 8), lo, hi, full=full)
+    r = compare_ext_kernel(qs, ts, dev, "stage-04 shape (extender)", reps=3)
+    n_host = min(len(qs), 2000)
+    t0 = time.time()
+    for q, t in zip(qs[:n_host], ts[:n_host]):
+        affine_extend_cpu(q.astype(np.uint8), t.astype(np.uint8))
+    host_ms = (time.time() - t0) * 1e3 * len(qs) / n_host
+    r["ext_fwd"]["host_native_ms"] = host_ms
+    log(f"[timing] ext_fwd: {len(qs)} pairs (stage 04 handed {ext_pairs}, "
+        f"mean m+n {ext_mean_mn:.0f}; here {r['ext_fwd']['shape']}); the "
+        f"native host loop takes {host_ms:.0f} ms for them (timed on "
+        f"{n_host} pairs, one core)")
+    out.update(r)
     return out
+
 
 
 def main() -> int:
@@ -465,12 +895,21 @@ def main() -> int:
     card = phase_env()
     phase_build()
     phase_kernels(dev)
+    phase_overlaps(dev)
+    fast_launches = phase_fast_path(dev)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ext_")
+    try:
+        ext_launches, ext_pairs, ext_mean_mn = phase_ext_path(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, facts = phase_main_path(dev, GENOME_SIZE, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    timing = phase_timing(dev, facts["retry_pairs"])
+    for k, path in KERNEL_PATH.items():
+        launches[k] = (fast_launches if path == FAST_PATH else ext_launches)[k]
+    timing = phase_timing(dev, facts["retry_pairs"], ext_pairs, ext_mean_mn)
     kernels = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]
@@ -479,7 +918,10 @@ def main() -> int:
             replaces=info["replaces"], launches=launches[name],
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-            exact=t["exact"], kernel_ms=t["ms"], shape=t["shape"]))
+            exact=t["exact"], kernel_ms=t["ms"], shape=t["shape"],
+            path=KERNEL_PATH.get(name, "task = all"),
+            **({"host_native_ms": t["host_native_ms"]}
+               if "host_native_ms" in t else {})))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -7,8 +7,10 @@ nothing from nextdenovo_tpu.  Entry points take an explicit `device`
 argument: None means the GPU (and raises without one); "cpu" runs the
 plain PyTorch versions of the hand-written CUDA kernels.
 
-Ported so far: task = correct (stages 00.db, 01.raw_align, 02.sort_align,
-03.seed_cns).
+Ported so far: task = all — read correction (stages 00.db, 01.raw_align,
+02.sort_align, 03.seed_cns) and assembly (04.cns_align, 05.ctg_graph,
+06.ctg_cns) — for ont/clr reads on one device, and every kernel of the JAX
+package (ops/myers.py, ops/align.py, ops/extend.py).
 """
 
 __version__ = "0.1.0"

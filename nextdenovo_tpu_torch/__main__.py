@@ -1,6 +1,7 @@
 """CLI of the PyTorch/CUDA port: ``python -m nextdenovo_tpu_torch ...``.
 
-  run <run.cfg> [--device cpu]    pipeline driver (task = correct)
+  run <run.cfg> [--device cpu]    pipeline driver (task = all | correct |
+                                  assemble, stages 00-06)
   <run.cfg> [--device cpu]        the same, `run` may be left out
 
 Runs on the GPU unless `--device cpu` is given.  The other sub-commands of

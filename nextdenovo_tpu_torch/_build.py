@@ -36,7 +36,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 
 # launches per kernel wrapper: a wrapper adds one where it launches its
 # CUDA kernel and nowhere else, so a run can show which kernels it used
-LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0}
+LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
+            "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0}
 
 _lock = threading.Lock()
 _kernels = None
@@ -166,6 +167,14 @@ def kernels() -> ctypes.CDLL:
                                      ci, ci, ci, ci, ci, vp]
         lib.ndt_wave_tb.restype = ci
         lib.ndt_wave_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        lib.ndt_ext_fwd.restype = ci
+        lib.ndt_ext_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                    ci, vp]
+        lib.ndt_wave_fast_fwd.restype = ci
+        lib.ndt_wave_fast_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
+                                          ci, ci, ci, ci, vp]
+        lib.ndt_wave_fast_tb.restype = ci
+        lib.ndt_wave_fast_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
         lib.ndt_error_string.restype = ctypes.c_char_p
         lib.ndt_error_string.argtypes = [ci]
         _kernels = lib

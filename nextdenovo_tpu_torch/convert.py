@@ -1,7 +1,8 @@
 """State carried across from the JAX package, given as numpy arrays.
 
 There are no weights in this system; the state is data: the 2-bit read
-store, the minimizer index and overlap-record blocks.  These functions take
+store, the minimizer index, overlap-record blocks and the per-read
+statistics of the cns-overlap filter.  These functions take
 plain numpy arrays (never nextdenovo_tpu objects), so this module imports
 nothing of the JAX package; a caller that holds the JAX package's objects
 unpacks them with np.asarray first.
@@ -15,6 +16,7 @@ import torch
 
 from .device import resolve_device
 from .io.seqstore import SeqStore
+from .overlap.cns import CnsInfo
 from .overlap.engine import MiniIndex
 from .overlap.records import OvlBlock
 
@@ -48,3 +50,13 @@ def index_from_arrays(h, rid, pos, n, lens, device=None) -> MiniIndex:
 def ovlblock_from_arrays(data: Dict[str, np.ndarray]) -> OvlBlock:
     """OvlBlock from a dict of equally long integer columns."""
     return OvlBlock({k: np.asarray(v, np.int32) for k, v in data.items()})
+
+
+def cnsinfo_from_arrays(st, touched, alns, lens) -> CnsInfo:
+    """CnsInfo from its four arrays (the contents of stage 04's
+    cnsinfo.npz): per-read stats (n, 9) int32, touched (n,) bool, covered
+    intervals (m, 3) int32 and read lengths (n,) int32."""
+    return CnsInfo(st=np.asarray(st, np.int32),
+                   touched=np.asarray(touched, bool),
+                   alns=np.asarray(alns, np.int32).reshape(-1, 3),
+                   lens=np.asarray(lens, np.int32))

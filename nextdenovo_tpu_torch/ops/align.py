@@ -18,8 +18,17 @@ band of W = 256 cells:
 
 Unit costs are edit distance (mismatch=1, gap=1).
 
-Two functions are hand-written CUDA kernels (csrc/wave.cu), each with a
-plain PyTorch version beside it that the wrapper uses for CPU tensors only:
+`band_align(R=1)` runs the narrow tier instead: a band of W = 128 cells on
+a FIXED in-word cadence lo(s) = base + (s + 1) // 2 shared by every pair,
+re-centred once per 16-step word by shifting the wavefronts by
+delta = clip(argmin - 64, -8, 8) lanes (clamped so that (m, n) stays
+reachable); only the word's base is stored, and the traceback applies the
+matching lane correction at each word boundary.  Word-boundary adaptation
+makes this tier slightly inexact on short pairs.
+
+Four functions are hand-written CUDA kernels (csrc/wave.cu,
+csrc/wave_fast.cu), each with a plain PyTorch version beside it that the
+wrapper uses for CPU tensors only:
 
   wave_fwd  replaces the Pallas kernel _fwd_kernel (R = 2) of
             nextdenovo_tpu/ops/align.py.  One block of 256 threads per
@@ -32,8 +41,15 @@ plain PyTorch version beside it that the wrapper uses for CPU tensors only:
             pair walks back from (m, n); it is a chain of dependent loads
             (latency, not bandwidth), one per emitted op.
 
-Only the R = 2 tier is ported; the fixed-cadence R = 1 kernels
-(_fwd_kernel_fast, _tb_onehot_kernel) are not.
+  wave_fast_fwd  replaces the Pallas kernel _fwd_kernel_fast (R = 1).
+            One block of 128 threads per pair; the neighbour pattern is
+            static (lane - 1 on even steps, lane + 1 on odd ones), so only
+            the newest wavefront goes through shared memory.  Bound by
+            operations, like wave_fwd at half the cells.
+  wave_fast_tb   replaces the Pallas kernel _tb_onehot_kernel (R = 1).
+            The reference's one-hot lane vector is a serial walk: one
+            thread per pair steps (word, step, lane) back from (m, n).
+            Latency-bound, like wave_tb.
 """
 from __future__ import annotations
 
@@ -50,6 +66,8 @@ INF = 1 << 28
 LANES = 128
 PACK = 16           # anti-diagonal steps packed per tb int32 word
 BAND_W = 256        # band cells per pair (the reference's R = 2 tier)
+FAST_W = 128        # band cells per pair of the fixed-cadence R = 1 tier
+T_FRONT = 24        # front sentinel pad of the R = 1 reversed-target buffer
 
 OP_DIAG, OP_UP, OP_LEFT, OP_NONE = 0, 1, 2, 3
 
@@ -67,6 +85,13 @@ def wave_fwd_defined(mn: torch.Tensor, n_words: int) -> torch.Tensor:
     last = torch.clamp(end // PACK, max=n_words - 1)
     words = torch.arange(n_words, device=mn.device, dtype=torch.int64)
     return words[None, :] <= last[:, None]
+
+
+def _lowest_argmin(v, widx, W):
+    """(min value, lowest index holding it) along dim 1."""
+    best_v = v.min(dim=1).values
+    best_w = torch.where(v == best_v[:, None], widx, W).min(dim=1).values
+    return best_v, best_w
 
 
 def wave_fwd_plain(qpad, rtpad, mn, n_words: int):
@@ -97,8 +122,7 @@ def wave_fwd_plain(qpad, rtpad, mn, n_words: int):
         live = word <= last_word
         # per-word band plan: shift budget from the wavefront argmin
         # (lowest index on ties), per-step geometric clamps applied exactly
-        best_v = v1.min(dim=1).values
-        best_w = torch.where(v1 == best_v[:, None], widx, W).min(dim=1).values
+        best_v, best_w = _lowest_argmin(v1, widx, W)
         s_total = torch.clamp(best_w - W // 2, 0, PACK)
         s_total = torch.where(best_v >= INF, 0, s_total)
         bits = torch.zeros((B, W), dtype=torch.int64, device=dev)
@@ -260,6 +284,226 @@ def wave_tb(tb: torch.Tensor, lo: torch.Tensor, mn: torch.Tensor):
 
 
 # ----------------------------------------------------------------------------
+# fixed-cadence tier (R = 1): forward
+
+
+def _shift_lanes(v, delta, widx, W):
+    """out[:, l] = v[:, l + delta] where that lane exists, else INF."""
+    src = widx + delta[:, None]
+    ok = (src >= 0) & (src < W)
+    return torch.where(ok, torch.gather(v, 1, torch.clamp(src, 0, W - 1)), INF)
+
+
+def wave_fast_fwd_plain(qpad, rtpad, mn, n_words: int):
+    """Plain PyTorch forward pass of the R = 1 tier (any device); see
+    wave_fast_fwd."""
+    dev = qpad.device
+    B, QP = qpad.shape
+    TP = rtpad.shape[1]
+    W = FAST_W
+    m = mn[:, 0].to(torch.int64)
+    n = mn[:, 1].to(torch.int64)
+    end = m + n
+    last_word = torch.clamp(end // PACK, max=n_words - 1)
+    q64 = qpad.to(torch.int64)
+    rt64 = rtpad.to(torch.int64)
+    widx = torch.arange(W, device=dev, dtype=torch.int64)[None, :]
+    inf_col = torch.full((B, 1), INF, dtype=torch.int64, device=dev)
+    v1 = torch.full((B, W), INF, dtype=torch.int64, device=dev)
+    v2 = v1.clone()
+    lo_prev = torch.zeros(B, dtype=torch.int64, device=dev)
+    dist = torch.full((B,), INF, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    tb = torch.zeros((B, n_words, W), dtype=torch.int32, device=dev)
+    base = torch.zeros((B, n_words), dtype=torch.int32, device=dev)
+    n_run = int(last_word.max().item()) + 1 if B else 0
+    for word in range(n_run):
+        a0 = word * PACK
+        live = word <= last_word
+        # per-word re-centring: lowest-lane argmin, then the three clamps
+        rmin, rarg = _lowest_argmin(v1, widx, W)
+        delta = torch.clamp(rarg - W // 2, -8, 8)
+        delta = torch.where(rmin >= INF, 0, delta)
+        delta = torch.maximum(delta, (a0 + PACK - 1) - n - (lo_prev + 8))
+        delta = torch.minimum(delta, m - (lo_prev + 8))
+        delta = torch.maximum(delta, -lo_prev)
+        delta = torch.where(done, 0, delta)
+        lo_base = lo_prev + delta
+        a_cur = _shift_lanes(v1, delta, widx, W)
+        b_cur = _shift_lanes(v2, delta, widx, W)
+        bits = torch.zeros((B, W), dtype=torch.int64, device=dev)
+        for s in range(PACK):
+            a = a0 + s
+            i_v = lo_base[:, None] + (s + 1) // 2 + widx
+            j_v = a - i_v
+            qc = torch.gather(q64, 1, torch.clamp(i_v, 0, QP - 1))
+            tc = torch.gather(
+                rt64, 1, torch.clamp(T_FRONT + n[:, None] - j_v, 0, TP - 1))
+            if s % 2 == 0:      # up reads lane - 1, left the same lane
+                up = torch.cat([inf_col, a_cur[:, :-1]], dim=1)
+                left = a_cur
+            else:               # up reads the same lane, left lane + 1
+                up = a_cur
+                left = torch.cat([a_cur[:, 1:], inf_col], dim=1)
+            cd = b_cur + (qc != tc).to(torch.int64)
+            cu = up + 1
+            cl = left + 1
+            vnew = torch.minimum(cd, torch.minimum(cu, cl))
+            op = torch.where(vnew == cd, OP_DIAG,
+                             torch.where(vnew == cu, OP_UP, OP_LEFT))
+            vnew = torch.where(i_v == 0, j_v, vnew)
+            op = torch.where(i_v == 0, OP_LEFT, op)
+            vnew = torch.where(j_v == 0, i_v, vnew)
+            op = torch.where(j_v == 0, OP_UP, op)
+            invalid = (i_v < 0) | (i_v > m[:, None]) | (j_v < 0) | \
+                (j_v > n[:, None])
+            vnew = torch.where(invalid, INF, vnew)
+            vnew = torch.where(done[:, None], a_cur, vnew)
+            bits = bits | (op << (2 * s))
+            at_end = (i_v == m[:, None]) & (j_v == n[:, None])
+            hit = torch.where(at_end, vnew, INF).min(dim=1).values
+            dist = torch.minimum(dist, hit)
+            done = dist < INF
+            b_cur, a_cur = a_cur, vnew
+        v1 = torch.where(live[:, None], a_cur, v1)
+        v2 = torch.where(live[:, None], b_cur, v2)
+        lo_prev = torch.where(live, lo_base + 8, lo_prev)
+        tb[:, word] = torch.where(live[:, None], _to_i32(bits), 0)
+        base[:, word] = torch.where(live, lo_base, 0).to(torch.int32)
+    stats = torch.stack([dist, done.to(torch.int64)], dim=1).to(torch.int32)
+    return tb, base, stats
+
+
+def wave_fast_fwd(qpad: torch.Tensor, rtpad: torch.Tensor, mn: torch.Tensor,
+                  n_words: int):
+    """Forward pass of the fixed-cadence R = 1 tier over B pairs.
+
+    qpad:  (B, QP) int32 — query codes, sentinel 4 at [0], padded tail
+    rtpad: (B, TP) int32 — reversed target codes behind T_FRONT sentinels
+    mn:    (B, 2) int32 — (m, n) per pair; n_words * 16 > max(m + n)
+    Returns (tb (B, n_words, 128) int32 packed decisions, base (B, n_words)
+    int32 band start at each word's first step, stats (B, 2) int32 [dist,
+    done]).  tb/base are defined up to each pair's last anti-diagonal
+    (wave_fwd_defined).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if qpad.device.type == "cpu":
+        return wave_fast_fwd_plain(qpad, rtpad, mn, n_words)
+    dev = qpad.device
+    B, QP = qpad.shape
+    TP = rtpad.shape[1]
+    check_tensor("qpad", qpad, (B, QP), torch.int32, dev)
+    check_tensor("rtpad", rtpad, (B, TP), torch.int32, dev)
+    check_tensor("mn", mn, (B, 2), torch.int32, dev)
+    tb = torch.empty((B, n_words, FAST_W), dtype=torch.int32, device=dev)
+    base = torch.zeros((B, n_words), dtype=torch.int32, device=dev)
+    stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
+    lib = _build.kernels()
+    with torch.cuda.device(dev):
+        rc = lib.ndt_wave_fast_fwd(
+            qpad.data_ptr(), rtpad.data_ptr(), mn.data_ptr(), tb.data_ptr(),
+            base.data_ptr(), stats.data_ptr(), B, QP, TP, n_words,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("wave_fast_fwd", rc)
+    _build.LAUNCHES["wave_fast_fwd"] += 1
+    return tb, base, stats
+
+
+# ----------------------------------------------------------------------------
+# fixed-cadence tier (R = 1): traceback
+
+
+def wave_fast_tb_plain(tb, base, mn):
+    """Plain PyTorch traceback of the R = 1 tier (any device); see
+    wave_fast_tb."""
+    dev = tb.device
+    B, n_words, W = tb.shape
+    a_max = n_words * PACK
+    m = mn[:, 0].to(torch.int64)
+    end = (mn[:, 0] + mn[:, 1]).to(torch.int64)
+    base64 = base.to(torch.int64)
+    rows = torch.arange(B, device=dev)
+    ops = torch.full((B, a_max), OP_NONE, dtype=torch.uint8, device=dev)
+    lane = torch.zeros(B, dtype=torch.int64, device=dev)
+    alive = torch.zeros(B, dtype=torch.bool, device=dev)
+    pend = torch.zeros(B, dtype=torch.bool, device=dev)
+    t_top = int(end.max().item()) if B else 0
+    for t in range(min(t_top, a_max - 1), 0, -1):
+        w, s = t // PACK, t % PACK
+        start = end == t
+        if bool(start.any()):
+            l0 = m - base64[:, w] - (s + 1) // 2
+            lane = torch.where(start, l0, lane)
+            alive = torch.where(start, (l0 >= 0) & (l0 < W), alive)
+        if s == PACK - 1 and w + 1 < n_words:
+            # word boundary: the forward pass may have re-centred the band
+            corr = torch.clamp(base64[:, w + 1] - base64[:, w] - 8,
+                               -W + 1, W - 1)
+            moved = alive & ~start
+            lane = torch.where(moved, lane + corr, lane)
+            alive = alive & (~moved | ((lane >= 0) & (lane < W)))
+        if not bool(alive.any()):
+            if bool((end < t).all()):
+                break
+            continue
+        act = alive & ~pend
+        lc = torch.clamp(lane, 0, W - 1)
+        word = tb[rows, w, lc].to(torch.int64) & 0xFFFFFFFF
+        op = (word >> (2 * s)) & 3
+        ops[:, t] = torch.where(act, op, ops[:, t].to(torch.int64)
+                                ).to(torch.uint8)
+        was_pend = alive & pend
+        pend = act & (op == OP_DIAG)
+        if s % 2 == 0:
+            lane = torch.where(act & (op == OP_UP), lane - 1, lane)
+        else:
+            lane = torch.where(act & (op == OP_LEFT), lane + 1, lane)
+        alive = alive & (was_pend | ((op != OP_NONE) & (lane >= 0)
+                                     & (lane < W)))
+    # a pair of two empty sequences starts (and stays) on anti-diagonal 0
+    l0 = m - base64[:, 0]
+    lane = torch.where(end == 0, l0, lane)
+    alive = torch.where(end == 0, (l0 >= 0) & (l0 < W), alive)
+    ok = alive & (lane == -base64[:, 0])
+    return ops, ok
+
+
+def wave_fast_tb(tb: torch.Tensor, base: torch.Tensor, mn: torch.Tensor):
+    """Walk the R = 1 tier's packed decisions back from (m, n) per pair.
+
+    Predecessors under the fixed cadence: DIAG is the same lane two steps
+    back; UP is lane - 1 on even steps and the same lane on odd ones; LEFT
+    is the same lane on even steps and lane + 1 on odd ones.  Crossing into
+    word w from word w + 1 the lane moves by base[w+1] - base[w] - 8.  The
+    walk stops at anti-diagonal 0; a lane that leaves the band ends it.
+
+    Returns (ops (B, n_words * 16) uint8: the op taken at anti-diagonal a in
+    slot a, OP_NONE elsewhere; ok (B,) bool: the walk ended on cell (0, 0),
+    lane -base[0]).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if tb.device.type == "cpu":
+        return wave_fast_tb_plain(tb, base, mn)
+    dev = tb.device
+    B, n_words, W = tb.shape
+    a_max = n_words * PACK
+    check_tensor("tb", tb, (B, n_words, FAST_W), torch.int32, dev)
+    check_tensor("base", base, (B, n_words), torch.int32, dev)
+    check_tensor("mn", mn, (B, 2), torch.int32, dev)
+    ops = torch.full((B, a_max), OP_NONE, dtype=torch.uint8, device=dev)
+    ok = torch.empty(B, dtype=torch.uint8, device=dev)
+    lib = _build.kernels()
+    with torch.cuda.device(dev):
+        rc = lib.ndt_wave_fast_tb(
+            tb.data_ptr(), base.data_ptr(), mn.data_ptr(), ops.data_ptr(),
+            ok.data_ptr(), B, n_words, a_max,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("wave_fast_tb", rc)
+    _build.LAUNCHES["wave_fast_tb"] += 1
+    return ops, ok.to(torch.bool)
+
+
+# ----------------------------------------------------------------------------
 # host-level wrappers
 
 
@@ -286,8 +530,9 @@ def band_align(queries: List[np.ndarray], targets: List[np.ndarray],
 
     R=None: bit-parallel banded Myers first (256-cell band), then the
     adaptive wide-band wavefront kernels for pairs whose Myers walk missed
-    the band.  R=2: the wavefront kernels alone.  `hq` is accepted for
-    signature parity and ignored by both device tiers.
+    the band.  R=2: the wide-band wavefront kernels alone.  R=1: the
+    fixed-cadence narrow-band kernels alone.  `hq` is accepted for
+    signature parity and ignored by every device tier.
 
     device=None means the GPU (raises without one); "cpu" runs the plain
     PyTorch versions."""
@@ -311,10 +556,8 @@ def band_align(queries: List[np.ndarray], targets: List[np.ndarray],
 
 
 def _band_align_R(queries, targets, R: int, dev: torch.device):
-    if R != 2:
-        raise NotImplementedError(
-            "not ported yet: the fixed-cadence R=1 tier "
-            "(_fwd_kernel_fast / _tb_onehot_kernel); only R=2 is available")
+    if R not in (1, 2):
+        raise ValueError(f"band_align: R must be 1, 2 or None, got {R!r}")
     B0 = len(queries)
     if B0 == 0:
         return []
@@ -349,13 +592,15 @@ def _band_align_R(queries, targets, R: int, dev: torch.device):
     n = np.array([len(t) for t in targets], np.int32)
     a_sz = int((m + n).max()) + 1
     n_words = (a_sz + PACK - 1) // PACK
-    qpad = pad_for_align(queries, int(m.max()), BAND_W)
+    W = R * LANES
+    qpad = pad_for_align(queries, int(m.max()), W)
     rtpad = pad_for_align([np.asarray(t)[::-1] for t in targets],
-                          int(n.max()), BAND_W)
+                          int(n.max()), W, front=T_FRONT if R == 1 else 1)
     mn = torch.from_numpy(np.stack([m, n], axis=1)).to(dev)
-    tb, lo, stats = wave_fwd(torch.from_numpy(qpad).to(dev),
-                             torch.from_numpy(rtpad).to(dev), mn, n_words)
-    ops, ok = wave_tb(tb, lo, mn)
+    fwd, tbk = (wave_fast_fwd, wave_fast_tb) if R == 1 else (wave_fwd, wave_tb)
+    tb, lo, stats = fwd(torch.from_numpy(qpad).to(dev),
+                        torch.from_numpy(rtpad).to(dev), mn, n_words)
+    ops, ok = tbk(tb, lo, mn)
     del tb
     ops_full = ops.cpu().numpy().view(np.int8)
     okv = ok.cpu().numpy()

@@ -1,17 +1,22 @@
-"""Pipeline orchestrator (PyTorch/CUDA port): read correction end to end.
+"""Pipeline orchestrator (PyTorch/CUDA port): correct-then-assemble end to
+end.
 
 Counterpart of nextdenovo_tpu/pipeline/run.py: a single-controller driver
 with per-stage durable checkpoints (`<workdir>/<stage>/` + `.done`
 markers), resumable by re-running the same command.
 
-Stages ported (task = correct):
+Stages (task = all; task = correct stops after 03, input_type = corrected
+skips 01-03):
   00.db         read stats, auto seed_cutoff, 2-bit read store + seeds
   01.raw_align  minimizer all-vs-all overlap of seeds
   02.sort_align seed-keyed sort + depth/chimera filter (host)
   03.seed_cns   device align + native consensus -> corrected reads
+  04.cns_align  cns all-vs-all + realign + end extension + dovetail filter
+  05.ctg_graph  string graph -> draft contigs (host)
+  06.ctg_cns    reads mapped back to the contigs + window re-consensus
 
-Stages 04-06 (cns_align, ctg_graph, polish) are not ported yet; a
-configuration that needs them is refused when it is read.
+HiFi reads, multi-device stages (use_mesh) and multi-host runs are not
+ported yet; a configuration that needs them is refused when it is read.
 
 Usage: python -m nextdenovo_tpu_torch run.cfg [--device cpu]
 """
@@ -25,10 +30,13 @@ import time
 
 import numpy as np
 
+from .. import _build
 from ..correct.driver import run_correction
 from ..device import resolve_device
+from ..graph.assemble import assemble
 from ..io.fastx import read_fastx, write_fasta
-from ..io.seqstore import SeqStore
+from ..io.seqstore import SeqStore, stat_n50
+from ..overlap.cns import cns_overlap_stage
 from ..overlap.engine import build_index, find_overlaps
 from ..overlap.records import OvlBlock
 from ..overlap.sort import sort_filter_overlaps
@@ -41,13 +49,6 @@ log = logging.getLogger("nextdenovo_tpu_torch")
 def check_ported(cfg: Config) -> None:
     """Refuse, with a clear error, every configuration that needs a part
     of the system that is not ported yet."""
-    if cfg.task != "correct":
-        raise NotImplementedError(
-            f"not ported yet: task = {cfg.task} (stages 04.cns_align, "
-            "05.ctg_graph, 06.polish); only task = correct is available")
-    if cfg.input_type != "raw":
-        raise NotImplementedError(
-            f"not ported yet: input_type = {cfg.input_type}")
     if cfg.read_type == "hifi":
         raise NotImplementedError(
             "not ported yet: read_type = hifi (long-kmer / homopolymer-"
@@ -96,6 +97,11 @@ class Stage:
     def mark(self):
         with open(os.path.join(self.dir, ".done"), "w") as fh:
             fh.write(str(time.time()))
+        # the kernels' launch counts so far in this process, as a
+        # zero-length span: the difference between two stages' rows is
+        # what the later stage launched
+        get_tracer().add("launches/" + os.path.basename(self.dir), 0.0,
+                         **_build.LAUNCHES)
 
     def path(self, f):
         return os.path.join(self.dir, f)
@@ -123,6 +129,7 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                             cfg.workdir, bak)
                 break
     os.makedirs(cfg.workdir, exist_ok=True)
+    t_start = time.time()
 
     # ---- db_stat + db_split --------------------------------------------
     st = Stage(cfg.workdir, "00.db")
@@ -162,6 +169,146 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
     lens = np.asarray(store.length)
     rids = np.arange(len(store))
 
+    if cfg.input_type == "corrected":
+        cns_store = store
+    else:
+        cns_store = _correct_stages(cfg, dev, hs, store, seed_mask, lens,
+                                    rids)
+
+    if cfg.task == "correct":
+        _dump_trace(cfg)
+        return dict(cns=cns_store)
+
+    # ---- cns_align ------------------------------------------------------
+    st = Stage(cfg.workdir, "04.cns_align")
+    if not st.done():
+        cns_rids = np.arange(len(cns_store))
+        with span("cns_align", reads=len(cns_store)):
+            cns_ovl, bl, cinfo = retry(
+                "cns_align", lambda: cns_overlap_stage(
+                    cns_store, cns_rids, k=cfg.cns_k, w=cfg.cns_w,
+                    maxhan1=cfg.maxhan1, maxhan2=cfg.maxhan2,
+                    min_span=cfg.cns_min_span, device=dev,
+                    return_info=True),
+                cfg.rerun)
+        cns_ovl.save(st.path("cns.filt.dovt.ovl"))
+        json.dump(bl, open(st.path("cnsbl.json"), "w"))
+        np.savez(st.path("cnsinfo.npz"), st=cinfo.st,
+                 touched=cinfo.touched, alns=cinfo.alns, lens=cinfo.lens)
+        st.mark()
+    cns_ovl = OvlBlock.load(st.path("cns.filt.dovt.ovl"))
+    bl = {int(k): v for k, v in json.load(open(st.path("cnsbl.json"))).items()}
+    log.info("cns_align: %d dovetail records, %d graph reads",
+             len(cns_ovl), len(bl))
+
+    # ---- ctg_graph ------------------------------------------------------
+    # graph building is host work (single-process in the reference too,
+    # ng/opt.c:10); draft contigs + per-node qv are persisted for resume.
+    st = Stage(cfg.workdir, "05.ctg_graph")
+    if st.done():
+        draft = SeqStore.load(st.path("draft"))
+        seqs = [draft.get(i) for i in range(len(draft))]
+        node_qv = None
+        if os.path.exists(st.path("node_qv.json")):
+            node_qv = json.load(open(st.path("node_qv.json")))
+    else:
+        read_lens = {i: int(cns_store.length[i])
+                     for i in range(len(cns_store))}
+        with span("ctg_graph", records=len(cns_ovl)):
+            sg, seqs = assemble(cns_ovl, read_lens, bl_info=bl,
+                                get_read=lambda r: cns_store.get(r),
+                                min_ctg_len=cfg.min_ctg_len,
+                                alt_ctg=cfg.alt_ctg, **cfg.graph_params)
+        paths = getattr(sg, "last_paths", [None] * len(seqs))
+        node_meta = getattr(sg, "last_node_meta", None)
+        from ..graph.output import (write_ctg_fasta, write_ctg_gfa,
+                                    write_ctg_paths, write_graphml)
+        write_ctg_fasta(st.path("nd.asm.p.fasta"), sg, seqs, paths,
+                        min_len=cfg.min_ctg_len, node_meta=node_meta)
+        write_ctg_gfa(st.path("nd.asm.p.gfa"), sg, seqs, paths)
+        write_graphml(st.path("nd.asm.p.graphml"), sg)
+        write_ctg_paths(st.path("nd.asm.p.path"), sg, paths)
+        node_qv = None
+        if node_meta is not None:
+            node_qv = [[dict(p=m["off"], ide=m["ide"], ort=m["ort"],
+                             irt=m["irt"]) for m in meta]
+                       for meta in node_meta]
+            json.dump(node_qv, open(st.path("node_qv.json"), "w"),
+                      default=int)
+        SeqStore.from_codes(seqs).save(st.path("draft"))
+        st.mark()
+
+    # ---- ctg_align + ctg_cns (polish) -----------------------------------
+    st = Stage(cfg.workdir, "06.ctg_cns")
+    if not st.done():
+        if cfg.polish and seqs:
+            from ..polish.driver import (collect_per_ctg, map_polish_reads,
+                                         polish_one, warn_fragmented)
+
+            # reference maps the raw seed reads back to contigs
+            # (ctg_align, nextDenovo:368-415); fall back to cns reads
+            if cfg.input_type == "raw":
+                seed_rids = np.nonzero(seed_mask)[0]
+                map_store = SeqStore.from_codes([store.get(int(r))
+                                                 for r in seed_rids])
+            else:
+                map_store = cns_store
+            map_p = st.path("map")
+            if not os.path.exists(map_p + ".npz"):
+                with span("ctg_align", contigs=len(seqs)):
+                    part = map_polish_reads(seqs, map_store, device=dev)
+                part.save(map_p)
+            ovl = OvlBlock.load(map_p)
+            pieces_p = st.path("pieces")
+            if not os.path.exists(pieces_p + ".npz"):
+                per_ctg = collect_per_ctg(ovl, len(seqs), map_store)
+                warn_fragmented(per_ctg, [len(s) for s in seqs],
+                                cfg.read_type_code)
+                keyed = []
+                with span("ctg_cns", contigs=len(seqs)):
+                    for ci in range(len(seqs)):
+                        qv = (node_qv[ci] if node_qv and ci < len(node_qv)
+                              else [])
+                        for j, p in enumerate(retry(
+                                f"ctg_cns contig {ci}",
+                                lambda: polish_one(
+                                    seqs[ci], per_ctg[ci], map_store, qv,
+                                    read_type=cfg.read_type_code,
+                                    split=cfg.ctg_split, device=dev),
+                                cfg.rerun)):
+                            keyed.append((f"{ci:06d}.{j:03d}", p))
+                        log.info("polish: contig %d done", ci)
+                SeqStore.from_codes([p for _, p in keyed],
+                                    names=[n for n, _ in keyed]
+                                    ).save(pieces_p)
+            p = SeqStore.load(pieces_p)
+            all_pieces = [(n, p.get(i)) for i, n in enumerate(p.names)]
+            all_pieces.sort(key=lambda x: x[0])
+            seqs = [s for _, s in all_pieces if len(s) >= cfg.min_ctg_len]
+            seqs.sort(key=len, reverse=True)
+        from ..graph.output import stat_table
+
+        names = [f"ctg{i:06d}" for i in range(len(seqs))]
+        write_fasta(st.path("nd.asm.fasta"), list(zip(names, seqs)))
+        stats = stat_n50(np.array([len(s) for s in seqs])) if seqs else {}
+        with open(st.path("nd.asm.stat"), "w") as fh:
+            fh.write(stat_table(seqs, cfg.genome_size or None))
+            fh.write("\n" + json.dumps(stats, indent=1, default=int))
+        st.mark()
+    seqs = [s for _, s in read_fastx(st.path("nd.asm.fasta"))]
+    stats = stat_n50(np.array([len(s) for s in seqs])) if seqs else {}
+    _dump_trace(cfg)
+    log.info("assembly: %d contigs, N50=%s, total=%s (%.1fs)",
+             len(seqs), stats.get("N50", (0,))[0] if stats else 0,
+             stats.get("total", 0), time.time() - t_start)
+    return dict(cns=cns_store, contigs=seqs, stats=stats,
+                fasta=st.path("nd.asm.fasta"))
+
+
+def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
+                    rids) -> SeqStore:
+    """Stages 01-03: raw overlaps of the seeds, the seed-keyed sort and
+    filter, and the correction itself.  Returns the corrected-read store."""
     # ---- raw_align ------------------------------------------------------
     st = Stage(cfg.workdir, "01.raw_align")
     if not st.done():
@@ -259,8 +406,7 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
     log.info("seed_cns: %d corrected reads, %d bases",
              len(cns_store), cns_store.total_bases)
 
-    _dump_trace(cfg)
-    return dict(cns=cns_store)
+    return cns_store
 
 
 def _dump_trace(cfg):
@@ -284,7 +430,9 @@ def main(argv=None):
                         "the plain PyTorch versions of the kernels")
     a = p.parse_args(sys.argv[1:] if argv is None else argv)
     cfg = load_config(a.cfg)
-    run_pipeline(cfg, device=a.device)
+    out = run_pipeline(cfg, device=a.device)
+    if "stats" in out:
+        print(json.dumps(out["stats"], default=int))
     return 0
 
 

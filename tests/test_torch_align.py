@@ -91,9 +91,14 @@ def test_pad_for_align_equal():
 
 
 def test_r1_tier_not_ported():
+    """The name dates from when R=1 was refused.  The fixed-cadence tier
+    now runs (tests/test_torch_align_fast.py holds it against the JAX
+    kernels); only an R that names no tier is refused."""
     q = np.zeros(10, np.int8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ta.band_align([q], [q], R=1, device="cpu")
+    (r,) = ta.band_align([q], [q], R=1, device="cpu")
+    assert r["ok"] and r["reached"] and r["dist"] == 0 and len(r["ops"]) == 10
+    with pytest.raises(ValueError, match="R must be"):
+        ta.band_align([q], [q], R=3, device="cpu")
 
 
 def test_hq_is_accepted_and_ignored():

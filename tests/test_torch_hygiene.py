@@ -34,7 +34,7 @@ import chip_profile
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "nextdenovo_tpu" or m.startswith("nextdenovo_tpu."))
-assert len(mods) >= 20, mods
+assert len(mods) >= 29, mods
 print("BAD", bad)
 """
     r = _run(code)
@@ -71,6 +71,7 @@ def test_default_device_raises_without_cuda(tmp_path):
     from nextdenovo_tpu_torch.correct.driver import run_correction
     from nextdenovo_tpu_torch.io.seqstore import SeqStore
     from nextdenovo_tpu_torch.ops.align import band_align
+    from nextdenovo_tpu_torch.ops.extend import affine_extend
     from nextdenovo_tpu_torch.ops.myers import myers_align
     from nextdenovo_tpu_torch.overlap.engine import build_index
     from nextdenovo_tpu_torch.overlap.records import OvlBlock
@@ -81,17 +82,37 @@ def test_default_device_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         band_align([q], [q])
     with pytest.raises(RuntimeError, match="CUDA"):
+        band_align([q], [q], R=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
         myers_align([q], [q])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        affine_extend([q], [q])
     store = SeqStore.from_codes([np.zeros(2000, np.uint8)])
     with pytest.raises(RuntimeError, match="CUDA"):
         build_index(store, np.arange(1), k=15, w=5)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_correction(store, OvlBlock.empty(), {})
-    (tmp_path / "input.fofn").write_text("reads.fa\n")
-    cfg = load_config(write_correct_cfg(tmp_path, "d", 10_000, "wd_d"))
+    from nextdenovo_tpu_torch.overlap import cns
+    from nextdenovo_tpu_torch.polish import driver as polish
     with pytest.raises(RuntimeError, match="CUDA"):
-        run_pipeline(cfg)
-    assert not os.path.exists(tmp_path / "wd_d")
+        cns.cns_overlap_stage(store, np.arange(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cns.realign_overlaps(store, OvlBlock.empty())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cns.extend_overlap_ends(store, OvlBlock.empty(True))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        polish.map_polish_reads([np.zeros(2000, np.uint8)], store)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        polish.polish_one(np.zeros(2000, np.uint8), [], store, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        polish.run_polish([np.zeros(2000, np.uint8)], store)
+    (tmp_path / "input.fofn").write_text("reads.fa\n")
+    for task in ("correct", "all"):
+        cfg = load_config(write_correct_cfg(tmp_path, "d", 10_000, "wd_d",
+                                            task=task))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_pipeline(cfg)
+        assert not os.path.exists(tmp_path / "wd_d")
 
 
 def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
@@ -100,7 +121,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     a clear error."""
     import torch
     from nextdenovo_tpu_torch import _build
-    from nextdenovo_tpu_torch.ops import align, myers
+    from nextdenovo_tpu_torch.ops import align, extend, myers
     monkeypatch.setattr(_build, "_kernels", None)
     monkeypatch.setattr(_build, "KERNEL_LIB",
                         os.path.join(str(_build.BUILD_DIR), "absent.so"))
@@ -111,8 +132,14 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     called = []
+    assert sorted(_build.LAUNCHES) == sorted(
+        ["myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
+         "wave_fast_fwd", "wave_fast_tb"])
     for mod, name in ((myers, "myers_fwd_plain"), (myers, "myers_tb_plain"),
-                      (align, "wave_fwd_plain"), (align, "wave_tb_plain")):
+                      (align, "wave_fwd_plain"), (align, "wave_tb_plain"),
+                      (align, "wave_fast_fwd_plain"),
+                      (align, "wave_fast_tb_plain"),
+                      (extend, "ext_fwd_plain")):
         monkeypatch.setattr(mod, name,
                             lambda *a, **k: called.append(1))
     meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
@@ -125,6 +152,13 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
         align.wave_fwd(meta(2, 640), meta(2, 640), meta(2, 2), 4)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         align.wave_tb(meta(2, 4, 256), meta(2, 64), meta(2, 2))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        align.wave_fast_fwd(meta(2, 640), meta(2, 640), meta(2, 2), 4)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        align.wave_fast_tb(meta(2, 4, 128), meta(2, 4), meta(2, 2))
+    meta8 = lambda *s: torch.empty(s, dtype=torch.uint8, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        extend.ext_fwd(meta8(2, 64), meta8(2, 64), meta(2, 2))
     assert not called
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
@@ -149,5 +183,9 @@ def test_kernels_match_plain_on_the_card():
     import chip_smoke
     rng = np.random.default_rng(7)
     qs, ts = chip_smoke.make_pairs(rng, 16, 300, 900)
-    res = chip_smoke.compare_kernels(qs, ts, torch.device("cuda"), "test")
-    assert all(v["exact"] for v in res.values())
+    dev = torch.device("cuda")
+    res = chip_smoke.compare_kernels(qs, ts, dev, "test")
+    res.update(chip_smoke.compare_fast_kernels(qs, ts, dev, "test"))
+    eq, et = chip_smoke.ext_tail_pairs(rng, 32)
+    res.update(chip_smoke.compare_ext_kernel(eq, et, dev, "test"))
+    assert len(res) == 7 and all(v["exact"] for v in res.values())

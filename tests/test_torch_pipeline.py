@@ -1,4 +1,4 @@
-"""The slice as a whole: task = correct (stages 00-03) through the port's
+"""The first slice as a whole: task = correct (stages 00-03) through the port's
 run_pipeline on the CPU against the JAX package's run_pipeline with its
 TPU path on the CPU (interpret=True), from the same reads.  Tolerance:
 exact equality of raw.ovl, sorted.ovl, bl.json and the corrected store."""
@@ -89,8 +89,8 @@ def test_done_markers_and_resume(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("task,extra,what", [
-    ("all", "", "task = all"),
-    ("assemble", "", "task = assemble"),
+    ("all", "use_mesh = 2", "use_mesh"),
+    ("assemble", "use_mesh = 4", "use_mesh"),
     ("correct", "use_mesh = 4", "use_mesh"),
 ])
 def test_unported_configurations_raise(tmp_path, task, extra, what):
@@ -109,9 +109,19 @@ def test_hifi_and_corrected_input_raise(tmp_path):
     cfg.read_type = "hifi"
     with pytest.raises(NotImplementedError, match="not ported yet"):
         trun(cfg, device="cpu")
-    cfg.read_type, cfg.input_type = "ont", "corrected"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trun(cfg, device="cpu")
+    for task in ("all", "assemble"):
+        cfg.read_type, cfg.task = "hifi", task
+        with pytest.raises(NotImplementedError, match="hifi"):
+            trun(cfg, device="cpu")
+    assert not os.path.exists(tmp_path / "wd_h")
+    # corrected input is admitted (stages 01-03 are skipped)
+    cfg.read_type, cfg.input_type, cfg.task = "ont", "corrected", "assemble"
+    assert trun_mod.check_ported(cfg) is None
+
+    class TwoHosts(trun_mod.SingleHost):
+        n_hosts = 2
+    with pytest.raises(NotImplementedError, match="multi-host"):
+        trun(cfg, device="cpu", hosts=TwoHosts())
 
 
 def test_cli_routes(tmp_path):
@@ -120,8 +130,14 @@ def test_cli_routes(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(["seq_stat", "-f", "x"])
     (tmp_path / "input.fofn").write_text("reads.fa\n")
-    cfgp = write_correct_cfg(tmp_path, "c", GLEN, "wd_c", task="all")
+    # task = all is admitted; what is still refused is refused through
+    # both spellings of the command, before any work
+    assert trun_mod.check_ported(tload(write_correct_cfg(
+        tmp_path, "a", GLEN, "wd_a", task="all"))) is None
+    cfgp = write_correct_cfg(tmp_path, "c", GLEN, "wd_c", task="all",
+                             extra="use_mesh = 4")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(["run", cfgp, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main([cfgp, "--device", "cpu"])
+    assert not os.path.exists(tmp_path / "wd_c")
