@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   kernels    each of the seven hand-written kernels against its plain
              PyTorch version on the card, exact equality of every output,
              on degenerate cases, 64 random 1-3 kb pairs and pairs with
-             |m-n| > 200 (tails of up to 1024 bases for the extender)
+             |m-n| > 200 (tails of up to 1024 bases for the extender); the
+             two Myers kernels, which share a pair among the lanes of a warp,
+             also on batches of 1, 7, 33 and 641 pairs, one batch of text
+             lengths 1..13900, walks that give up (EV_FAIL) and carries that
+             cross several band words
   overlaps   find_overlaps on one fixed batch of reads gives identical
              records on the card and on the CPU
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
@@ -31,7 +35,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              and the contigs against the simulated genome
   timing     each kernel at its path's shape against its plain version
              (exact equality again), with the least time the card could
-             take for the same work
+             take for the same work; the Myers kernels also at 640, 1280,
+             2560 and 5120 pairs and at the main path's longest columns,
+             every pair of a launch equal to the same pair in a launch of 640
+
+The kernel and timing phases run under a watchdog: a kernel that hangs
+ends the run with exit code 3 instead of blocking it.
 
 Without a CUDA device it exits non-zero and prints no result.  The last
 line of stdout is {"ok": true, "device": {...}}; the line before the card
@@ -47,6 +56,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # the largest of 1 Mb / 300 kb / 100 kb whose whole run fits half of the
@@ -88,6 +98,30 @@ FAST_PATH_KERNELS = ("wave_fast_fwd", "wave_fast_tb")
 
 def log(*a):
     print(*a, flush=True)
+
+
+class watchdog:
+    """Ends the run with exit code 3 when the block takes longer than
+    `seconds`.  A kernel that hangs (a collective some lanes never reach)
+    blocks the host in its next synchronise for ever; the timer thread runs
+    meanwhile, because a synchronise does not hold the interpreter lock."""
+
+    def __init__(self, seconds, what):
+        self.what, self.seconds = what, seconds
+        self.timer = threading.Timer(seconds, self._fire)
+        self.timer.daemon = True
+
+    def _fire(self):
+        print(f"chip_smoke: {self.what} did not finish within "
+              f"{self.seconds} s (a hung kernel?)", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    def __enter__(self):
+        self.timer.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.cancel()
 
 
 # --------------------------------------------------------------------------
@@ -134,6 +168,66 @@ def skewed_pairs(rng, n=16):
         if i % 2:
             q, t = t, q
         qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+def mixed_length_pairs(rng, n=48, hi=13900):
+    """One batch whose text lengths run from 1 to `hi` columns."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.simulate import mutate_read
+    lens = np.unique(np.geomspace(1, hi, n).astype(int))
+    qs, ts = [], []
+    for L in lens:
+        t = rng.integers(0, 4, int(L)).astype(np.uint8)
+        q = mutate_read(t, 0.10, rng) if L > 8 else t.copy()
+        if len(q) < len(t):              # keep the text the shorter side
+            q = np.concatenate([q, rng.integers(0, 4, len(t) - len(q))])
+        qs.append(q.astype(np.int8))
+        ts.append(t.astype(np.int8))
+    return qs, ts
+
+
+def band_exit_pairs(rng, n=24):
+    """Pairs the Myers tier starts on and gives up half way (event EV_FAIL):
+    one side carries a block of 70-120 extra bases of a letter the other
+    side does not have, so one column holds the whole run of up-moves, and a
+    column's run may be 63 cells at most."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.simulate import mutate_read
+    qs, ts = [], []
+    for i in range(n):
+        L = int(rng.integers(1200, 2500))
+        t = rng.integers(0, 3, L).astype(np.uint8)
+        q = np.minimum(mutate_read(t, 0.02, rng), 2)
+        a = int(rng.integers(200, len(q) - 200))
+        q = np.concatenate([q[:a], np.full(int(rng.integers(70, 121)), 3),
+                            q[a:]]).astype(np.int8)
+        t = t.astype(np.int8)
+        if i % 2:
+            q, t = t, q
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+def carry_pairs(rng, n=16):
+    """Words of all ones under the multiword add: a first text character
+    that matches the query once, at the band's centre, sends a carry up
+    through every word above it in column 1, and long exact-match and
+    one-letter runs after an indel keep whole words of VP set."""
+    import numpy as np
+    qs, ts = [], []
+    for i in range(n):
+        run = int(rng.integers(100, 600))
+        body = rng.integers(0, 4, int(rng.integers(50, 400))).astype(np.int8)
+        c = int(rng.integers(1, 4))
+        t = np.concatenate([np.zeros(1, np.int8), np.full(run, c, np.int8),
+                            body, np.full(run, (c % 3) + 1, np.int8), body])
+        cut = int(rng.integers(1, 40))
+        q = t.copy() if i % 4 == 0 else np.concatenate(
+            [t[: run // 2], t[run // 2 + cut:], rng.integers(0, 4, cut)])
+        qs.append(q.astype(np.int8))
         ts.append(t)
     return qs, ts
 
@@ -245,7 +339,9 @@ def wave_inputs(qs, ts, dev):
 
 def timed(fn, reps, warm=True):
     """(result of the last call, ms per call) by CUDA events, after a warm
-    call unless warm=False."""
+    call unless warm=False.  A call's result is dropped before the next
+    call, so that its buffers are reused and no allocation by the driver
+    falls between the events."""
     import torch
     if warm:
         fn()
@@ -253,7 +349,9 @@ def timed(fn, reps, warm=True):
     s = torch.cuda.Event(enable_timing=True)
     e = torch.cuda.Event(enable_timing=True)
     s.record()
+    out = None
     for _ in range(reps):
+        out = None
         out = fn()
     e.record()
     torch.cuda.synchronize()
@@ -364,40 +462,54 @@ def compare_fast_kernels(qs, ts, dev, tag, reps=0):
     return res
 
 
+def compare_myers_kernels(qs, ts, dev, tag, reps=0, need_fail=False):
+    """myers_fwd / myers_tb against their plain versions on the tensors
+    these pairs give them: score, final, events, i_final and ok in full,
+    the planes on the rows myers_fwd_defined marks."""
+    import torch
+    from nextdenovo_tpu_torch.ops import myers as M
+    res = {}
+    nw = 8
+    mi = myers_inputs(qs, ts, dev, nw)
+    B = len(qs)
+    n_steps = mi["qtop"].shape[0]
+    cols = int(mi["n_np"].sum())             # columns this data needs
+    fk, fp, t = _run(
+        lambda: M.myers_fwd(mi["win0"], mi["qtop"], mi["tch"], mi["n"],
+                            mi["off"], nw=nw),
+        lambda: M.myers_fwd_plain(mi["win0"], mi["qtop"], mi["tch"], mi["n"],
+                                  mi["off"], nw=nw), reps)
+    defined = M.myers_fwd_defined(mi["n"], n_steps)[:, None, None, :]
+    byt = cols * (2 * nw * 4 + 8) + B * (4 * nw * 4 + 8 + 4 + 2 * nw * 4)
+    ops = cols * nw * 30
+    _record(res, tag, "myers_fwd",
+            (fk[0], torch.where(defined, fk[1], 0), fk[2]),
+            (fp[0], torch.where(defined, fp[1], 0), fp[2]), dict(
+        t, shape=f"B={B} columns={n_steps} nw={nw}", **_bound(byt, ops)))
+    planes = fk[1]
+    tk, tp, t = _run(
+        lambda: M.myers_tb(planes, mi["m"], mi["n"], mi["off"], nw=nw),
+        lambda: M.myers_tb_plain(planes, mi["m"], mi["n"], mi["off"], nw=nw),
+        reps)
+    byt = cols * 2 * nw * 4 + n_steps * B + B * 17
+    ops = cols * nw * 12
+    _record(res, tag, "myers_tb", tk, tp, dict(
+        t, shape=f"B={B} columns={n_steps} nw={nw}", **_bound(byt, ops)))
+    if need_fail and not bool((tk[0] == M.EV_FAIL).any()):
+        raise RuntimeError(f"'{tag}': no walk left the band (no EV_FAIL)")
+    return res
+
+
 def compare_kernels(qs, ts, dev, tag, reps=0):
     """Run the Myers and wide-band wavefront kernels and their plain
     versions on the tensors these pairs give them.  Returns {kernel:
     dict(exact, max_abs_err[, ms, plain_ms, bound...])}.  reps > 0 also
     times them."""
     from nextdenovo_tpu_torch.ops import align as A
-    from nextdenovo_tpu_torch.ops import myers as M
-    res = {}
+    res = compare_myers_kernels(qs, ts, dev, tag, reps)
+    B = len(qs)
     record = lambda *a: _record(res, tag, *a)
     run = lambda fn_k, fn_p: _run(fn_k, fn_p, reps)
-
-    nw = 8
-    mi = myers_inputs(qs, ts, dev, nw)
-    B = len(qs)
-    n_steps = mi["qtop"].shape[0]
-    cols = int(mi["n_np"].sum())             # columns this data needs
-    fk, fp, t = run(
-        lambda: M.myers_fwd(mi["win0"], mi["qtop"], mi["tch"], mi["n"],
-                            mi["off"], nw=nw),
-        lambda: M.myers_fwd_plain(mi["win0"], mi["qtop"], mi["tch"], mi["n"],
-                                  mi["off"], nw=nw))
-    byt = cols * (2 * nw * 4 + 8) + B * (4 * nw * 4 + 8 + 4 + 2 * nw * 4)
-    ops = cols * nw * 30
-    record("myers_fwd", fk, fp, dict(
-        t, shape=f"B={B} columns={n_steps} nw={nw}", **_bound(byt, ops)))
-    planes = fk[1]
-    tk, tp, t = run(
-        lambda: M.myers_tb(planes, mi["m"], mi["n"], mi["off"], nw=nw),
-        lambda: M.myers_tb_plain(planes, mi["m"], mi["n"], mi["off"], nw=nw))
-    byt = cols * 2 * nw * 4 + n_steps * B + B * 17
-    ops = cols * nw * 12
-    record("myers_tb", tk, tp, dict(
-        t, shape=f"B={B} columns={n_steps} nw={nw}", **_bound(byt, ops)))
-    del planes, fk, fp
 
     wi = wave_inputs(qs, ts, dev)
     nwd = wi["n_words"]
@@ -499,6 +611,19 @@ def phase_kernels(dev):
         log(f"[kernels] {tag}: " + ", ".join(
             f"{k} exact={v['exact']}" for k, v in r.items()))
         compare_results(qs, ts, dev, tag)
+    # the Myers kernels share a pair among the lanes of a warp: batches
+    # that do not fill their last warp, ends that diverge inside a warp,
+    # walks that fail, carries that cross words
+    myers_sets = [(f"ragged B={b}", make_pairs(rng, b, 200, 1500), False)
+                  for b in (1, 7, 33, 641)]
+    # up to the longest columns the main path launches (about 13.8k)
+    myers_sets += [("mixed n 1..13900", mixed_length_pairs(rng), False),
+                   ("band exits", band_exit_pairs(rng), True),
+                   ("multi-word carry", carry_pairs(rng), False)]
+    for tag, (qs, ts), need_fail in myers_sets:
+        r = compare_myers_kernels(qs, ts, dev, tag, need_fail=need_fail)
+        log(f"[kernels] {tag}: " + ", ".join(
+            f"{k} exact={v['exact']}" for k, v in r.items()))
     ext_sets = [("extender degenerate", ext_degenerate_pairs(rng)),
                 ("extender 256 tails <= 1024", ext_tail_pairs(rng, 256)),
                 ("extender |m-n| > 200", ext_skewed_pairs(rng))]
@@ -717,6 +842,17 @@ def phase_main_path(dev, genome_size, workdir):
         + ("" if retry_pairs else " (the retry tier saw zero pairs at this "
            "workload)"))
 
+    batches = [(int(s_.attrs["pairs"]), int(s_.attrs["columns"]))
+               for s_ in tracer.spans if s_.name == "kernel/myers_batch"]
+    if len(batches) != launches["myers_fwd"]:
+        raise RuntimeError(f"{len(batches)} Myers sub-batches recorded for "
+                           f"{launches['myers_fwd']} myers_fwd launches")
+    dist = lambda v: (f"min {int(np.min(v))} / median {int(np.median(v))} / "
+                      f"max {int(np.max(v))}")
+    log(f"[main_path] myers_fwd / myers_tb launches: {len(batches)}; pairs "
+        f"a launch {dist([b for b, _ in batches])}; columns a launch "
+        f"{dist([c for _, c in batches])}")
+
     wd = os.path.join(workdir, "wd")
     stages = ("00.db", "01.raw_align", "02.sort_align", "03.seed_cns",
               "04.cns_align", "05.ctg_graph", "06.ctg_cns")
@@ -843,10 +979,66 @@ def phase_main_path(dev, genome_size, workdir):
                           retry_pairs=max(retry_pairs, default=0))
 
 
+def myers_sweep(dev, rng, qs, ts, sizes=(640, 1280, 2560, 5120), chunk=640):
+    """Both Myers kernels at growing launches of 11000-12288 columns, then
+    at 1280 pairs of the main path's longest columns (about 13.8k): ms a
+    launch and ns a pair-column.  A launch of `chunk` pairs is what the
+    kernels were just held against their plain versions on; every pair of a
+    larger launch must come out as it does when the same pairs run in
+    launches of `chunk`, whatever block and plane address it falls on."""
+    import torch
+    from nextdenovo_tpu_torch.ops import myers as M
+    nw = 8
+    more_q, more_t = make_pairs(rng, max(sizes) - len(qs), 11000, 12288)
+    qs, ts = qs + more_q, ts + more_t
+    sets = [(qs[:nb], ts[:nb]) for nb in sizes]
+    sets.append(make_pairs(rng, 2 * chunk, 13400, 13900))
+
+    def run(mi):
+        f = M.myers_fwd(mi["win0"], mi["qtop"], mi["tch"], mi["n"], mi["off"],
+                        nw=nw)
+        return f, M.myers_tb(f[1], mi["m"], mi["n"], mi["off"], nw=nw)
+
+    for q, t in sets:
+        nb = len(q)
+        mi = myers_inputs(q, t, dev, nw)
+        cols = int(mi["n_np"].sum())
+        n_max = mi["qtop"].shape[0]
+        fk, f_ms = timed(lambda: M.myers_fwd(
+            mi["win0"], mi["qtop"], mi["tch"], mi["n"], mi["off"], nw=nw), 3)
+        tk, t_ms = timed(lambda: M.myers_tb(
+            fk[1], mi["m"], mi["n"], mi["off"], nw=nw), 3)
+        log(f"[timing] myers sweep: {nb} pairs x {n_max} columns (planes "
+            f"{n_max * 8 * nw * nb / 2**30:.2f} GiB): myers_fwd {f_ms:.3f} ms "
+            f"= {f_ms * 1e6 / cols:.3f} ns a pair-column, myers_tb "
+            f"{t_ms:.3f} ms = {t_ms * 1e6 / cols:.3f} ns a pair-column")
+        for s in range(0, nb, chunk):
+            e = min(s + chunk, nb)
+            cf, ct = run(myers_inputs(q[s:e], t[s:e], dev, nw))
+            nc = cf[1].shape[0]              # the chunk's own longest pair
+            defined = M.myers_fwd_defined(mi["n"][s:e], nc)[:, None, None]
+            got = (fk[0][s:e], fk[2][:, :, s:e],
+                   torch.where(defined, fk[1][:nc, :, :, s:e], 0),
+                   tk[0][n_max - nc:, s:e], tk[1][s:e], tk[2][s:e],
+                   tk[0][: n_max - nc, s:e])
+            want = (cf[0], cf[2], torch.where(defined, cf[1], 0), *ct,
+                    torch.full_like(got[-1], M.EV_IDLE))
+            for name, a, b in zip(("score", "final", "planes", "events",
+                                   "i_final", "ok", "idle events"), got, want):
+                if not _tensors_equal(a, b)[0]:
+                    raise RuntimeError(
+                        f"myers sweep: {name} of pairs {s}..{e - 1} differ "
+                        f"between a launch of {nb} pairs and one of {e - s}")
+        log(f"[timing] myers sweep: all {nb} pairs equal to launches of "
+            f"{chunk}")
+        del mi, fk, tk
+        torch.cuda.empty_cache()
+
+
 def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
-    """Kernels at their path's shape: a Myers sub-batch of 640 pairs of up
-    to 12288 columns (the correction driver's chunk limit and the aligner's
-    plane-memory bound), the two wavefront pairs on a retry batch, the
+    """Kernels at their path's shape: a Myers launch of 640 pairs of up to
+    12288 columns (the small end of the main path's launches; myers_sweep
+    covers the large end), the two wavefront pairs on a retry batch, the
     extender on as many tail pairs, of the same mean length, as stage 04
     handed it."""
     import numpy as np
@@ -855,6 +1047,7 @@ def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
     qs, ts = make_pairs(rng, 640, 11000, 12288)
     r = compare_kernels(qs, ts, dev, "main-path shape (Myers)", reps=3)
     out = {k: r[k] for k in ("myers_fwd", "myers_tb")}
+    myers_sweep(dev, rng, qs, ts)
     nb = min(max(retry_pairs, 8), 64)
     qs, ts = make_pairs(rng, nb, 11000, 12288)
     r = compare_kernels(qs, ts, dev, "main-path shape (wave)", reps=3)
@@ -884,7 +1077,6 @@ def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
     return out
 
 
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -894,7 +1086,8 @@ def main() -> int:
     dev = torch.device("cuda")
     card = phase_env()
     phase_build()
-    phase_kernels(dev)
+    with watchdog(420, "the kernel phase"):
+        phase_kernels(dev)
     phase_overlaps(dev)
     fast_launches = phase_fast_path(dev)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ext_")
@@ -909,7 +1102,9 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     for k, path in KERNEL_PATH.items():
         launches[k] = (fast_launches if path == FAST_PATH else ext_launches)[k]
-    timing = phase_timing(dev, facts["retry_pairs"], ext_pairs, ext_mean_mn)
+    with watchdog(420, "the timing phase"):
+        timing = phase_timing(dev, facts["retry_pairs"], ext_pairs,
+                              ext_mean_mn)
     kernels = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]

@@ -158,10 +158,10 @@ def kernels() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.ndt_myers_fwd.restype = ci
         lib.ndt_myers_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                      ci, ci, ci, vp]
+                                      ci, ci, ci, ci, vp]
         lib.ndt_myers_tb.restype = ci
         lib.ndt_myers_tb.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                     ci, ci, ci, vp]
+                                     ci, ci, ci, ci, vp]
         lib.ndt_wave_fwd.restype = ci
         lib.ndt_wave_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
                                      ci, ci, ci, ci, ci, vp]

@@ -33,3 +33,30 @@ def check_tensor(name: str, t: torch.Tensor, shape, dtype, device) -> None:
             f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def row_pitch(name: str, t: torch.Tensor, shape, dtype, device) -> int:
+    """Elements between two rows of `t`'s last dimension, for a kernel that
+    moves rows 16 bytes a piece.  Admits the narrow view `buf[..., :shape[-1]]`
+    of a contiguous tensor whose last dimension was padded, as a kernel's
+    wrapper allocates it, and a contiguous tensor (pitch = shape[-1]); either
+    way every row must start on a 16-byte boundary."""
+    shape = tuple(shape)
+    ok = (t.device == device and t.dtype == dtype and tuple(t.shape) == shape
+          and t.dim() >= 2)
+    pitch = t.stride(-2) if ok else 0
+    if ok and shape[-1] > 1:
+        ok = t.stride(-1) == 1
+    want, acc = [], 1
+    for d in reversed(shape[:-1]):
+        want.append(pitch * acc)
+        acc *= d
+    aligned = ok and (pitch * t.element_size() % 16 == 0
+                      and t.data_ptr() % 16 == 0)
+    if not aligned or pitch < shape[-1] or list(t.stride()[:-1]) != want[::-1]:
+        raise ValueError(
+            f"{name}: expected {dtype} {shape} on {device}, contiguous or "
+            f"with a padded last dimension, rows 16-byte aligned, got "
+            f"{t.dtype} {tuple(t.shape)} strides {tuple(t.stride())} on "
+            f"{t.device}")
+    return pitch

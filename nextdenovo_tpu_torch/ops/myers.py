@@ -29,14 +29,26 @@ Two functions are hand-written CUDA kernels (csrc/myers.cu), each with a
 plain PyTorch version beside it that the wrapper uses for CPU tensors only:
 
   myers_fwd  replaces the lax.scan body of nextdenovo_tpu/ops/myers.py
-             myers_fwd.  One thread per pair, the band in registers, the
-             column loop inside the thread.  Bound by bytes: it must write
-             16*nw bytes of planes per pair and column; the (…, B) layout
-             makes every warp store contiguous.
-  myers_tb   replaces the lax.scan body of myers_tb.  One thread per pair
-             reads the planes back high -> low (contiguous across the
-             warp) and writes one event byte per column.  Bound by bytes
-             read (the planes, once).
+             myers_fwd.
+  myers_tb   replaces the lax.scan body of myers_tb.
+
+Both are one dependent chain per pair and column, so what bounds a launch
+depends on how many pairs it carries.  Up to ~2500 pairs the card's warp
+schedulers hold at most one warp each: the launch takes columns x the time of
+one column on a lone warp, the same for 640 pairs as for 1280.  The kernels
+shorten that column: eight lanes of a warp share a pair (a band word
+each), the multiword add resolves its carries across the lanes with two
+ballots and one integer add, the match windows are read by one funnel shift
+instead of being shifted every column, and nothing on the chain waits for
+device memory (the forward pass loads its per-column streams a chunk of 32
+columns ahead; the traceback streams the planes through a shared-memory ring
+with cp.async, 24 columns ahead of the walk).  Above that the bound becomes
+the integer operations executed and then the planes' bytes (8*nw per pair and
+column, written once and read once): a block stages whole columns in shared
+memory and moves them as aligned rows, for which myers_fwd pads the planes'
+rows, and myers_align sizes its sub-batches (max_plane_bytes) so that a
+launch is as large as its callers' batches allow.  Neither kernel computes or
+moves a plane row above a pair's own last column (myers_fwd_defined).
 """
 from __future__ import annotations
 
@@ -46,14 +58,13 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..device import check_tensor, resolve_device
+from ..device import check_tensor, resolve_device, row_pitch
 
 UP, LEFT, DIAG = 1, 2, 0        # op encoding shared with ops.align
 EV_FAIL = 255                   # event byte: band exit / up-run overflow
 EV_IDLE = 254                   # event byte: pair not walking this column
 
 _M32 = 0xFFFFFFFF
-
 
 # ---------------------------------------------------------------------------
 # plain multiword helpers: x is (NW, B) int64 holding values in [0, 2^32);
@@ -156,6 +167,15 @@ def myers_fwd_plain(win0, qtop, tch, nvec, off, *, nw: int):
     return score.to(torch.int32), planes, final
 
 
+def myers_fwd_defined(nvec: torch.Tensor, n_steps: int) -> torch.Tensor:
+    """(n_steps, B) bool: the plane rows the forward pass defines — a pair's
+    columns j <= nv (row j - 1).  The traceback never reads a row above a
+    pair's own last column and the kernel leaves those rows unspecified (the
+    plain version writes them)."""
+    cols = torch.arange(n_steps, device=nvec.device, dtype=torch.int64)
+    return cols[:, None] < nvec.to(torch.int64)[None, :]
+
+
 def myers_fwd(win0: torch.Tensor, qtop: torch.Tensor, tch: torch.Tensor,
               nvec: torch.Tensor, off: torch.Tensor, *, nw: int):
     """Forward pass.
@@ -168,7 +188,9 @@ def myers_fwd(win0: torch.Tensor, qtop: torch.Tensor, tch: torch.Tensor,
     Returns (score (B,) int32 = D(n,n)-track, planes (n_max, 2, NW, B)
     int32 [DV, VP], final (2, NW, B) int32 [VP, VN]).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel,
+    which defines the plane rows myers_fwd_defined marks and no others and
+    returns `planes` as the narrow view of a buffer with padded rows."""
     if qtop.device.type == "cpu":
         return myers_fwd_plain(win0, qtop, tch, nvec, off, nw=nw)
     n_steps, B = qtop.shape
@@ -180,18 +202,21 @@ def myers_fwd(win0: torch.Tensor, qtop: torch.Tensor, tch: torch.Tensor,
         raise ValueError(f"the myers_fwd kernel is built for nw = 8, got {nw}")
     dev = qtop.device
     score = torch.empty(B, dtype=torch.int32, device=dev)
-    planes = torch.empty((n_steps, 2, nw, B), dtype=torch.int32, device=dev)
+    # plane rows are padded to whole 128-byte lines, so the kernels move
+    # them 16 bytes a thread whatever B is; callers get the narrow view
+    pitch = (B + 31) // 32 * 32
+    planes = torch.empty((n_steps, 2, nw, pitch), dtype=torch.int32, device=dev)
     final = torch.empty((2, nw, B), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         rc = lib.ndt_myers_fwd(
             win0.data_ptr(), qtop.data_ptr(), tch.data_ptr(), nvec.data_ptr(),
             off.data_ptr(), score.data_ptr(), planes.data_ptr(),
-            final.data_ptr(), n_steps, B, nw,
+            final.data_ptr(), n_steps, B, pitch, nw,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("myers_fwd", rc)
     _build.LAUNCHES["myers_fwd"] += 1
-    return score, planes, final
+    return score, planes[..., :B], final
 
 
 def tail_walk(score: np.ndarray, final: np.ndarray, m: np.ndarray,
@@ -295,13 +320,14 @@ def myers_tb(planes: torch.Tensor, mvec: torch.Tensor, nvec: torch.Tensor,
     per (pair, column): min(k,63)<<2 | move.  Returns (events (n_max, B)
     uint8 in scan order (j = n_max..1), i_final (B,) int32, ok (B,) bool).
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel, which
+    takes `planes` as myers_fwd returns them (rows 16-byte aligned)."""
     if planes.device.type == "cpu":
         return myers_tb_plain(planes, mvec, nvec, off, nw=nw)
     n_max = planes.shape[0]
     B = mvec.shape[0]
     dev = planes.device
-    check_tensor("planes", planes, (n_max, 2, nw, B), torch.int32, dev)
+    pitch = row_pitch("planes", planes, (n_max, 2, nw, B), torch.int32, dev)
     for name, t in (("mvec", mvec), ("nvec", nvec), ("off", off)):
         check_tensor(name, t, (B,), torch.int32, dev)
     if nw != 8:
@@ -314,7 +340,8 @@ def myers_tb(planes: torch.Tensor, mvec: torch.Tensor, nvec: torch.Tensor,
         rc = lib.ndt_myers_tb(
             planes.data_ptr(), mvec.data_ptr(), nvec.data_ptr(),
             off.data_ptr(), evs.data_ptr(), i_f.data_ptr(), ok.data_ptr(),
-            n_max, B, nw, torch.cuda.current_stream(dev).cuda_stream)
+            n_max, B, pitch, nw,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("myers_tb", rc)
     _build.LAUNCHES["myers_tb"] += 1
     return evs, i_f, ok.to(torch.bool)
@@ -380,13 +407,15 @@ def _build_streams(qpad: torch.Tensor, tpad: torch.Tensor, off: torch.Tensor,
 
 
 def myers_align(queries: List[np.ndarray], targets: List[np.ndarray],
-                nw: int = 8, max_plane_bytes: int = 1 << 29, device=None):
+                nw: int = 8, max_plane_bytes: int = 1 << 32, device=None):
     """Batched banded global alignment; returns list of dicts
     {dist, reached, ok, ops} matching ops.align.band_align.  Pairs are
     swapped internally so m >= n (ops transposed back); the band is
     centered per pair on the (0,0)->(m,n) chord via a per-pair offset.
     Long batches are processed in sub-batches bounding the traceback-plane
-    memory (16*nw bytes per pair-column)."""
+    memory (8*nw bytes per pair-column).  The bound is the card's: a pair-
+    column gets cheaper with every doubling of a launch up to the 5120 pairs
+    of 12288 columns measured on an H100 (planes of 3.75 GiB)."""
     dev = resolve_device(device)
     if len(queries) == 0:
         return []
@@ -408,6 +437,7 @@ def myers_align(queries: List[np.ndarray], targets: List[np.ndarray],
 def _myers_batch(queries, targets, nw: int, dev: torch.device):
     """Forward + traceback + event expansion for one sub-batch."""
     from ..native import expand_events as _native_expand
+    from ..utils import span as _tspan
 
     W = 32 * nw
     B = len(queries)
@@ -442,9 +472,11 @@ def _myers_batch(queries, targets, nw: int, dev: torch.device):
     qtop, tch, win0 = _build_streams(
         torch.from_numpy(qpad).to(dev), torch.from_numpy(tpad).to(dev),
         off_d, nw=nw)
-    score, planes, final = myers_fwd(win0, qtop, tch, n_d, off_d, nw=nw)
-    evs, i_f, ok = myers_tb(planes, m_d, n_d, off_d, nw=nw)
-    del planes
+    # one launch of each kernel; the span records the launch's shape
+    with _tspan("kernel/myers_batch", pairs=B, columns=n_pad):
+        score, planes, final = myers_fwd(win0, qtop, tch, n_d, off_d, nw=nw)
+        evs, i_f, ok = myers_tb(planes, m_d, n_d, off_d, nw=nw)
+        del planes
     score = score.cpu().numpy()
     final = final.cpu().numpy().view(np.uint32)
     evs = evs.cpu().numpy()

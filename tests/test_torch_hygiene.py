@@ -147,7 +147,15 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
         myers.myers_fwd(meta(4, 8, 2), meta(5, 2), meta(5, 2), meta(2),
                         meta(2), nw=8)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        myers.myers_tb(meta(5, 2, 8, 2), meta(2), meta(2), meta(2), nw=8)
+        myers.myers_tb(meta(5, 2, 8, 4), meta(4), meta(4), meta(4), nw=8)
+    # the planes as myers_fwd hands them on: a narrow view of padded rows
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        myers.myers_tb(meta(5, 2, 8, 32)[..., :2], meta(2), meta(2), meta(2),
+                       nw=8)
+    # the mask of defined plane rows is plain tensor code: no library
+    defined = myers.myers_fwd_defined(meta(2), 5)
+    assert defined.dtype == torch.bool and tuple(defined.shape) == (5, 2)
+    assert tuple(align.wave_fwd_defined(meta(2, 2), 4).shape) == (2, 4)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         align.wave_fwd(meta(2, 640), meta(2, 640), meta(2, 2), 4)
     with pytest.raises(RuntimeError, match="nvcc not found"):
