@@ -17,7 +17,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              two Myers kernels, which share a pair among the lanes of a warp,
              also on batches of 1, 7, 33 and 641 pairs, one batch of text
              lengths 1..13900, walks that give up (EV_FAIL) and carries that
-             cross several band words
+             cross several band words; wave_tb, one warp a pair, also on
+             batches of 1, 3, 5, 33 and 130 pairs, one batch of m + n from 0
+             to 24.6k, and tb/lo from wave_fwd with lo moved by +-300 over a
+             run of anti-diagonals in every other pair, so that walks leave
+             the band mid-way (at least one pair must end with ok = 0)
   overlaps   find_overlaps on one fixed batch of reads gives identical
              records on the card and on the CPU
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
@@ -37,7 +41,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              (exact equality again), with the least time the card could
              take for the same work; the Myers kernels also at 640, 1280,
              2560 and 5120 pairs and at the main path's longest columns,
-             every pair of a launch equal to the same pair in a launch of 640
+             every pair of a launch equal to the same pair in a launch of
+             640; wave_tb at 8, 64, 256 and 640 pairs of 11000-12288 columns
+             (ms, steps of the longest walk, ns and cycles a step), every
+             pair equal to the same pair in launches of 64
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -209,6 +216,19 @@ def band_exit_pairs(rng, n=24):
         qs.append(q)
         ts.append(t)
     return qs, ts
+
+
+def shift_lo(lo, mn, by=300):
+    """lo with a run of anti-diagonals moved by +by (pairs 1, 5, 9, ...) or
+    -by (pairs 3, 7, ...) in every other pair: their walks leave the band
+    mid-way, whatever the decisions say."""
+    out = lo.clone()
+    end = (mn[:, 0] + mn[:, 1]).tolist()
+    for b in range(1, lo.shape[0], 2):
+        a0 = end[b] // 3
+        a1 = a0 + max(16, end[b] // 4)
+        out[b, a0:a1] += by if b % 4 == 1 else -by
+    return out
 
 
 def carry_pairs(rng, n=16):
@@ -523,14 +543,23 @@ def compare_kernels(qs, ts, dev, tag, reps=0):
     ops = diags * A.BAND_W * 40
     record("wave_fwd", (tb_k, wk[1], wk[2]), wp, dict(
         t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
-    bk, bp, t = run(lambda: A.wave_tb(wk[0], wk[1], wi["mn"]),
-                    lambda: A.wave_tb_plain(wk[0], wk[1], wi["mn"]))
+    compare_wave_tb(res, tag, wk[0], wk[1], wi["mn"], reps)
+    return res
+
+
+def compare_wave_tb(res, tag, tb, lo, mn, reps=0):
+    """wave_tb against wave_tb_plain on these tensors; returns the kernel's
+    (ops, ok)."""
+    from nextdenovo_tpu_torch.ops import align as A
+    B, nwd = tb.shape[0], tb.shape[1]
+    bk, bp, t = _run(lambda: A.wave_tb(tb, lo, mn),
+                     lambda: A.wave_tb_plain(tb, lo, mn), reps)
     steps = int((bk[0] != A.OP_NONE).sum().item())     # walk steps taken
     byt = steps * 8 + B * nwd * A.PACK + B * 9
     ops = steps * 20
-    record("wave_tb", bk, bp, dict(
+    _record(res, tag, "wave_tb", bk, bp, dict(
         t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
-    return res
+    return bk
 
 
 def _bound(byt, ops):
@@ -624,6 +653,7 @@ def phase_kernels(dev):
         r = compare_myers_kernels(qs, ts, dev, tag, need_fail=need_fail)
         log(f"[kernels] {tag}: " + ", ".join(
             f"{k} exact={v['exact']}" for k, v in r.items()))
+    wave_tb_sets(dev, rng)
     ext_sets = [("extender degenerate", ext_degenerate_pairs(rng)),
                 ("extender 256 tails <= 1024", ext_tail_pairs(rng, 256)),
                 ("extender |m-n| > 200", ext_skewed_pairs(rng))]
@@ -632,6 +662,37 @@ def phase_kernels(dev):
         log(f"[kernels] {tag}: " + ", ".join(
             f"{k} exact={v['exact']}" for k, v in r.items()))
         compare_extend_results(qs, ts, dev, tag)
+
+
+def wave_tb_sets(dev, rng):
+    """wave_tb, one warp a pair and four pairs a block, against wave_tb_plain
+    on tb/lo from wave_fwd: batches that do not fill their last block, walks
+    of 0 to 24.6k anti-diagonals in one launch, and walks that leave the band
+    mid-way (lo shifted; at least one pair must end with ok = 0)."""
+    import numpy as np
+    from nextdenovo_tpu_torch.ops import align as A
+    sets = [(f"wave ragged B={b}", make_pairs(rng, b, 200, 1500), 0)
+            for b in (1, 3, 5, 33, 130)]
+    # an empty pair, then m + n from 2 to about 24.6k
+    qs, ts = mixed_length_pairs(rng, n=40, hi=12300)
+    empty = np.zeros(0, np.int8)
+    sets += [("wave mixed m+n 0..24.6k", ([empty] + qs, [empty] + ts), 0),
+             ("wave band exits (lo +-300)", make_pairs(rng, 64, 1000, 3000),
+              300)]
+    for tag, (qs, ts), by in sets:
+        wi = wave_inputs(qs, ts, dev)
+        tb, lo, _ = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"],
+                               wi["n_words"])
+        if by:
+            lo = shift_lo(lo, wi["mn"], by)
+        res = {}
+        _, ok = compare_wave_tb(res, tag, tb, lo, wi["mn"])
+        n_ok = int(ok.sum().item())
+        log(f"[kernels] {tag}: wave_tb exact={res['wave_tb']['exact']}, "
+            f"{n_ok} of {len(qs)} pairs ok, max m+n "
+            f"{int((wi['m_np'] + wi['n_np']).max())}")
+        if by and n_ok == len(qs):
+            raise RuntimeError(f"'{tag}': no walk left the band (all ok)")
 
 
 def phase_overlaps(dev):
@@ -1035,6 +1096,51 @@ def myers_sweep(dev, rng, qs, ts, sizes=(640, 1280, 2560, 5120), chunk=640):
         torch.cuda.empty_cache()
 
 
+def sm_clock_mhz():
+    """The SM clock of card 0 in MHz, as nvidia-smi reports it now."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0])
+
+
+def wave_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
+    """wave_tb at growing launches of 11000-12288 columns, on tb/lo that
+    wave_fwd produced for the largest launch (smaller launches take its
+    first pairs): ms a launch, the longest walk's steps, ns and cycles a
+    step of that walk.  Every pair of every launch must come out as it does
+    in launches of `chunk` pairs; the first `chunk` pairs were just held
+    against wave_tb_plain."""
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    more_q, more_t = make_pairs(rng, max(sizes) - len(qs), 11000, 12288)
+    wi = wave_inputs(qs + more_q, ts + more_t, dev)
+    tb, lo, _ = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"], wi["n_words"])
+    mn = wi["mn"]
+    want = [A.wave_tb(tb[s:s + chunk], lo[s:s + chunk], mn[s:s + chunk])
+            for s in range(0, max(sizes), chunk)]
+    want_ops = torch.cat([w[0] for w in want])
+    want_ok = torch.cat([w[1] for w in want])
+    steps = (want_ops != A.OP_NONE).sum(dim=1)
+    for nb in sizes:
+        (ops, ok), ms = timed(lambda: A.wave_tb(tb[:nb], lo[:nb], mn[:nb]), 5)
+        mhz = sm_clock_mhz()
+        longest = int(steps[:nb].max().item())
+        ns = ms * 1e6 / longest
+        log(f"[timing] wave sweep: {nb} pairs x {wi['n_words'] * A.PACK} "
+            f"anti-diagonals: wave_tb {ms:.3f} ms; longest walk {longest} "
+            f"steps ({int(steps[:nb].sum().item())} in all) = {ns:.1f} ns a "
+            f"step = {ns * mhz / 1e3:.0f} cycles a step at {mhz:.0f} MHz")
+        if not (torch.equal(ops, want_ops[:nb])
+                and torch.equal(ok, want_ok[:nb])):
+            raise RuntimeError(f"wave sweep: a launch of {nb} pairs differs "
+                               f"from launches of {chunk}")
+    log(f"[timing] wave sweep: every pair of every launch equal to launches "
+        f"of {chunk}")
+    del tb, lo, want, want_ops
+    torch.cuda.empty_cache()
+
+
 def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
     """Kernels at their path's shape: a Myers launch of 640 pairs of up to
     12288 columns (the small end of the main path's launches; myers_sweep
@@ -1052,6 +1158,7 @@ def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
     qs, ts = make_pairs(rng, nb, 11000, 12288)
     r = compare_kernels(qs, ts, dev, "main-path shape (wave)", reps=3)
     out.update({k: r[k] for k in ("wave_fwd", "wave_tb")})
+    wave_sweep(dev, rng, qs, ts)
     # the R = 1 pair at 64 pairs of up to 12288 columns, like wave_*
     qs, ts = make_pairs(rng, 64, 11000, 12288)
     out.update(compare_fast_kernels(qs, ts, dev, "R=1 shape (wave_fast)",

@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""Compare versions of the wave_tb kernel on one card, in turns.
+
+    python3 chip_variants.py [--latency] A.cu [B.cu ...]
+
+Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
+wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
+script builds the package, makes tb/lo with its wave_fwd for 640 pairs of
+11000-12288 columns, holds the package's wave_tb against wave_tb_plain on
+the first 64 pairs, and builds each copy into a library of its own.  Every
+copy must give the package's ops and ok at 64 and 640 pairs, on those tb/lo
+and with lo moved so that walks leave the band (chip_smoke.shift_lo).  Then
+every copy is timed at both sizes twice, in the order given and in reverse
+(CUDA events, 5 launches after a warm one, each with its OP_NONE prefill of
+ops, which copies that write only the slots they visit need), and the
+script prints ms a launch and cycles a step of the longest walk at the SM
+clock nvidia-smi reports.  A copy that exports
+`int ndt_dbg(void* host, int n)`, copying 6 int64 counters a pair (loop
+cycles, cycles in word changes, cycles waiting for copies, steps, word
+changes) from an instrumented kernel, gets them summarised.
+
+--latency first runs a one-warp microbenchmark: a chain of dependent
+shared-memory loads, the same chain with the walk's mask, compare and two
+selects between the loads, and two chains of dependent integer
+instructions; it prints cycles an iteration.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+import tempfile
+
+LATENCY_CU = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__device__ __forceinline__ int lds32(unsigned addr) {
+    int v;
+    asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+    return v;
+}
+__global__ void k_lat(long long* out, int n, int seed) {
+    __shared__ __align__(1024) int s[1024];
+    for (int i = threadIdx.x; i < 1024; i += blockDim.x)
+        s[i] = ((i * 7 + 13) & 1023) * 4;
+    __syncthreads();
+    const unsigned base = (unsigned)__cvta_generic_to_shared(s);
+    long long t0 = clock64();
+    unsigned a = base | (unsigned)(seed * 4);
+    for (int k = 0; k < n; ++k) a = base | (unsigned)lds32(a);
+    long long t1 = clock64();
+    unsigned b = base | (unsigned)(seed * 4);
+    int sh = seed & 15;
+    for (int k = 0; k < n; ++k) {
+        const uint32_t w = (uint32_t)lds32(b);
+        const uint32_t x = w & (3u << sh);
+        const bool d = x == 0, l = x == (2u << sh);
+        b = d ? (base | (w & 0xFFC))
+              : (l ? (base | ((w >> 2) & 0xFFC)) : (base | ((w << 2) & 0xFFC)));
+        sh = (sh + 1) & 15;
+    }
+    long long t2 = clock64();
+    int x = seed;
+#pragma unroll 16
+    for (int k = 0; k < n; ++k) x = x * 3 + 1;
+    long long t3 = clock64();
+    int y = seed;
+#pragma unroll 16
+    for (int k = 0; k < n; ++k) {
+        const bool p = (y & 3) == 0;
+        y = p ? (y ^ 0x55) : (y + 7);
+    }
+    long long t4 = clock64();
+    if (threadIdx.x == 0) {
+        out[0] = t1 - t0; out[1] = t2 - t1; out[2] = t3 - t2; out[3] = t4 - t3;
+        out[4] = (long long)a + b + x + y;
+    }
+}
+extern "C" int lat_run(void* out, int n) {
+    k_lat<<<1, 32>>>((long long*)out, n, 3);
+    return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def compile_so(nvcc, flags, src, so):
+    return subprocess.Popen([nvcc, *flags, "-shared", "-o", so, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def latency(nvcc, flags, tmp):
+    import torch
+    src, so = os.path.join(tmp, "lat.cu"), os.path.join(tmp, "lat.so")
+    with open(src, "w") as fh:
+        fh.write(LATENCY_CU)
+    p = compile_so(nvcc, flags, src, so)
+    if p.wait() != 0:
+        raise RuntimeError(p.stdout.read().decode())
+    lib = ctypes.CDLL(so)
+    lib.lat_run.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    out = torch.zeros(8, dtype=torch.int64, device="cuda")
+    n = 4096
+    if lib.lat_run(out.data_ptr(), n) != 0:
+        raise RuntimeError("latency kernel failed")
+    o = [v / n for v in out.cpu().tolist()[:4]]
+    log(f"[latency] cycles an iteration: dependent shared load {o[0]:.1f}; "
+        f"load + mask, compare, two selects {o[1]:.1f}; IMAD chain {o[2]:.1f}; "
+        f"compare + select chain {o[3]:.1f}")
+
+
+def main(argv) -> int:
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_variants: no CUDA device available", file=sys.stderr)
+        return 2
+    do_lat = "--latency" in argv
+    srcs = [a for a in argv if a != "--latency"]
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import align as A
+    c.phase_env()
+    _build.build(native=False)
+    _build.kernels()
+    nvcc = _build.find_nvcc()
+    tmp = tempfile.mkdtemp(prefix="chip_variants_")
+    if do_lat:
+        latency(nvcc, _build.NVCC_FLAGS, tmp)
+    procs = []
+    for k, src in enumerate(srcs):
+        so = os.path.join(tmp, f"v{k}.so")
+        procs.append((os.path.basename(src)[:-3], so,
+                      compile_so(nvcc, _build.NVCC_FLAGS, src, so)))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs = {}
+    for name, so, p in procs:
+        if p.wait() != 0:
+            raise RuntimeError(f"{name}: build failed\n"
+                               f"{p.stdout.read().decode()}")
+        lib = ctypes.CDLL(so)
+        lib.ndt_wave_tb.restype = ci
+        lib.ndt_wave_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        libs[name] = lib
+    d = torch.device("cuda")
+
+    def run(lib, tb, lo, mn):
+        B, nw, _ = tb.shape
+        ops = torch.full((B, nw * A.PACK), A.OP_NONE, dtype=torch.uint8,
+                         device=d)
+        ok = torch.empty(B, dtype=torch.uint8, device=d)
+        rc = lib.ndt_wave_tb(tb.data_ptr(), lo.data_ptr(), mn.data_ptr(),
+                             ops.data_ptr(), ok.data_ptr(), B, nw, nw * A.PACK,
+                             torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: error {rc}")
+        return ops, ok.to(torch.bool)
+
+    rng = np.random.default_rng(11)
+    qs, ts = c.make_pairs(rng, 640, 11000, 12288)
+    wi = c.wave_inputs(qs, ts, d)
+    tb, lo, _ = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"], wi["n_words"])
+    mn = wi["mn"]
+    res = {}
+    c.compare_wave_tb(res, "64 pairs", tb[:64], lo[:64], mn[:64])
+    log(f"[variants] package wave_tb against wave_tb_plain at 64 pairs: "
+        f"exact={res['wave_tb']['exact']}")
+    lo_moved = c.shift_lo(lo, mn)
+    want = {0: A.wave_tb(tb, lo, mn), 1: A.wave_tb(tb, lo_moved, mn)}
+    sizes = (64, 640)
+    for name, lib in libs.items():
+        for nb in sizes:
+            for k, l_ in ((0, lo), (1, lo_moved)):
+                got = run(lib, tb[:nb], l_[:nb], mn[:nb])
+                if not (torch.equal(got[0], want[k][0][:nb])
+                        and torch.equal(got[1], want[k][1][:nb])):
+                    raise RuntimeError(f"{name} differs from the package's "
+                                       f"wave_tb at {nb} pairs")
+    log("[variants] every copy equal to the package's wave_tb")
+    times = {}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            for nb in sizes:
+                _, ms = c.timed(lambda: run(libs[name], tb[:nb], lo[:nb],
+                                            mn[:nb]), 5)
+                times.setdefault((name, nb), []).append(ms)
+    steps = (want[0][0] != A.OP_NONE).sum(dim=1)
+    mhz = c.sm_clock_mhz()
+    for nb in sizes:
+        longest = int(steps[:nb].max())
+        for name in libs:
+            t = times[(name, nb)]
+            log(f"[variants] {name} {nb} pairs: "
+                + " / ".join(f"{x:.3f}" for x in t) + f" ms; "
+                f"{min(t) * 1e6 / longest * mhz / 1e3:.0f} cycles a step "
+                f"(longest walk {longest} steps, {mhz:.0f} MHz)")
+    for name, lib in libs.items():
+        if not hasattr(lib, "ndt_dbg"):
+            continue
+        for nb in sizes:
+            run(lib, tb[:nb], lo[:nb], mn[:nb])
+            torch.cuda.synchronize()
+            buf = (ctypes.c_longlong * (nb * 6))()
+            if lib.ndt_dbg(ctypes.cast(buf, ctypes.c_void_p), nb) != 0:
+                raise RuntimeError("ndt_dbg failed")
+            arr = np.frombuffer(buf, dtype=np.int64).reshape(nb, 6)
+            tl, te, tw, ns, ne = (arr[:, k].astype(float) for k in range(5))
+            log(f"[variants] {name} {nb} pairs, counters: "
+                f"{np.mean((tl - te) / (ns + ne)):.1f} cycles a step in the "
+                f"loop; {np.mean(te / ne):.1f} cycles a word change, of "
+                f"which {np.mean(tw / ne):.1f} waiting for copies; "
+                f"{np.mean(ns + ne):.0f} steps and {np.mean(ne):.0f} word "
+                f"changes a pair")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -37,9 +37,16 @@ wrapper uses for CPU tensors only:
             each of the 256 cells of an anti-diagonal, ahead of the 64 B of
             decisions it must write); each word is one contiguous 1 KB
             store and a block stops at its own pair's last anti-diagonal.
-  wave_tb   replaces the Pallas kernel _tb_kernel (R = 2).  One thread per
-            pair walks back from (m, n); it is a chain of dependent loads
-            (latency, not bandwidth), one per emitted op.
+  wave_tb   replaces the Pallas kernel _tb_kernel (R = 2).  One warp per
+            pair walks back from (m, n), all 32 lanes redundantly; the word
+            rows (1 KB of decisions + 64 B of lo) stream ahead of the walk
+            through a cp.async ring of 8 words in shared memory, so a step
+            waits on one shared load, not on device memory; the next lane
+            is picked among three formed while that load is in flight.
+            Bound by the walk (one op a step, each waiting on the last, at
+            one warp's issue rate), not by bytes.  Exact as wave_tb_plain
+            on any tb/lo, band exits included; it reads no word above
+            (m + n) // 16 and writes every byte of ops.
 
   wave_fast_fwd  replaces the Pallas kernel _fwd_kernel_fast (R = 1).
             One block of 128 threads per pair; the neighbour pattern is
@@ -260,6 +267,8 @@ def wave_tb(tb: torch.Tensor, lo: torch.Tensor, mn: torch.Tensor):
     Returns (ops (B, a_max) uint8: the op taken at anti-diagonal a in slot
     a, OP_NONE elsewhere — read low -> high it is the alignment start ->
     end; ok (B,) bool: the walk stayed in the band and ended at (0, 0)).
+    Needs m + n < n_words * 16, as wave_fwd does; reads no tb/lo row above
+    a pair's last anti-diagonal.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     if tb.device.type == "cpu":
@@ -270,7 +279,7 @@ def wave_tb(tb: torch.Tensor, lo: torch.Tensor, mn: torch.Tensor):
     check_tensor("tb", tb, (B, n_words, BAND_W), torch.int32, dev)
     check_tensor("lo", lo, (B, n_words * PACK), torch.int32, dev)
     check_tensor("mn", mn, (B, 2), torch.int32, dev)
-    ops = torch.full((B, a_max), OP_NONE, dtype=torch.uint8, device=dev)
+    ops = torch.empty((B, a_max), dtype=torch.uint8, device=dev)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):

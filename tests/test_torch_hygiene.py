@@ -47,8 +47,8 @@ def test_port_sources_name_no_jax_import():
     import re
     pat = re.compile(r"^\s*(from|import)\s+(jax|nextdenovo_tpu)(\.|\s|$)")
     hits = []
-    files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "chip_profile.py")]
+    files = [os.path.join(ROOT, f)
+             for f in ("chip_smoke.py", "chip_profile.py", "chip_variants.py")]
     for dp, _, fs in os.walk(os.path.join(ROOT, "nextdenovo_tpu_torch")):
         files += [os.path.join(dp, f) for f in fs if f.endswith(".py")]
     for p in files:
