@@ -17,11 +17,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              two Myers kernels, which share a pair among the lanes of a warp,
              also on batches of 1, 7, 33 and 641 pairs, one batch of text
              lengths 1..13900, walks that give up (EV_FAIL) and carries that
-             cross several band words; wave_tb, one warp a pair, also on
-             batches of 1, 3, 5, 33 and 130 pairs, one batch of m + n from 0
-             to 24.6k, and tb/lo from wave_fwd with lo moved by +-300 over a
-             run of anti-diagonals in every other pair, so that walks leave
-             the band mid-way (at least one pair must end with ok = 0)
+             cross several band words; wave_fwd and wave_tb, one warp a
+             pair, also on batches of 1, 3, 5, 33 and 130 pairs; wave_tb
+             also on one batch of m + n from 0 to 24.6k, and tb/lo from
+             wave_fwd with lo moved by +-300 over a run of anti-diagonals in
+             every other pair, so that walks leave the band mid-way (at
+             least one pair must end with ok = 0)
   overlaps   find_overlaps on one fixed batch of reads gives identical
              records on the card and on the CPU
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
@@ -42,9 +43,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              take for the same work; the Myers kernels also at 640, 1280,
              2560 and 5120 pairs and at the main path's longest columns,
              every pair of a launch equal to the same pair in a launch of
-             640; wave_tb at 8, 64, 256 and 640 pairs of 11000-12288 columns
-             (ms, steps of the longest walk, ns and cycles a step), every
-             pair equal to the same pair in launches of 64
+             640; wave_fwd at 8, 64, 256 and 640 pairs of 11000-12288
+             columns (ms, cycles an anti-diagonal of the longest pair), every
+             pair equal to the same pair in the launch of 640; wave_tb at the
+             same sizes (ms, steps of the longest walk, ns and cycles a step),
+             every pair equal to the same pair in launches of 64
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -540,7 +543,11 @@ def compare_kernels(qs, ts, dev, tag, reps=0):
     defined = A.wave_fwd_defined(wi["mn"], nwd)[:, :, None]
     tb_k = wk[0] * defined
     byt = diags * (64 + 4) + int((wi["m_np"] + wi["n_np"]).sum()) * 4 + B * 16
-    ops = diags * A.BAND_W * 40
+    # the least int32 work of a band cell: compare its two codes, add the
+    # result to diag, min(up, left), add the gap cost, min of the two, two
+    # compares that pick the decision (DIAG if diag + sub is the least, UP
+    # if up <= left) and one insert of its two bits: 8 operations
+    ops = diags * A.BAND_W * 8
     record("wave_fwd", (tb_k, wk[1], wk[2]), wp, dict(
         t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
     compare_wave_tb(res, tag, wk[0], wk[1], wi["mn"], reps)
@@ -668,7 +675,8 @@ def wave_tb_sets(dev, rng):
     """wave_tb, one warp a pair and four pairs a block, against wave_tb_plain
     on tb/lo from wave_fwd: batches that do not fill their last block, walks
     of 0 to 24.6k anti-diagonals in one launch, and walks that leave the band
-    mid-way (lo shifted; at least one pair must end with ok = 0)."""
+    mid-way (lo shifted; at least one pair must end with ok = 0).  On the
+    ragged batches wave_fwd too is held against wave_fwd_plain."""
     import numpy as np
     from nextdenovo_tpu_torch.ops import align as A
     sets = [(f"wave ragged B={b}", make_pairs(rng, b, 200, 1500), 0)
@@ -681,8 +689,16 @@ def wave_tb_sets(dev, rng):
               300)]
     for tag, (qs, ts), by in sets:
         wi = wave_inputs(qs, ts, dev)
-        tb, lo, _ = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"],
-                               wi["n_words"])
+        fwd = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"], wi["n_words"])
+        tb, lo, _ = fwd
+        if tag.startswith("wave ragged"):
+            # the forward pass, one warp a pair, on the same ragged batches
+            defined = A.wave_fwd_defined(wi["mn"], wi["n_words"])[:, :, None]
+            res = {}
+            _record(res, tag, "wave_fwd", (fwd[0] * defined, *fwd[1:]),
+                    A.wave_fwd_plain(wi["qpad"], wi["rtpad"], wi["mn"],
+                                     wi["n_words"]))
+            log(f"[kernels] {tag}: wave_fwd exact={res['wave_fwd']['exact']}")
         if by:
             lo = shift_lo(lo, wi["mn"], by)
         res = {}
@@ -1104,18 +1120,48 @@ def sm_clock_mhz():
         capture_output=True, text=True, check=True).stdout.splitlines()[0])
 
 
+def wave_fwd_sweep(dev, qs, ts, sizes):
+    """wave_fwd at growing launches (the first nb pairs): ms a launch and
+    cycles an anti-diagonal of the launch's longest pair.  Every pair of a
+    launch must come out as it does in the largest launch."""
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    wi = wave_inputs(qs[:max(sizes)], ts[:max(sizes)], dev)
+    big = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"], wi["n_words"])
+    words = A.wave_fwd_defined(wi["mn"], wi["n_words"])[:, :, None]
+    for nb in sizes:
+        w = wave_inputs(qs[:nb], ts[:nb], dev)
+        nw = w["n_words"]
+        out, ms = timed(lambda: A.wave_fwd(w["qpad"], w["rtpad"], w["mn"],
+                                           nw), 3)
+        mhz = sm_clock_mhz()
+        diags = int((w["m_np"] + w["n_np"]).max()) + 1
+        log(f"[timing] wave_fwd sweep: {nb} pairs x {nw * A.PACK} "
+            f"anti-diagonals: wave_fwd {ms:.3f} ms; longest pair {diags} "
+            f"anti-diagonals = {ms * 1e6 / diags * mhz / 1e3:.0f} cycles an "
+            f"anti-diagonal at {mhz:.0f} MHz")
+        d = words[:nb, :nw]
+        if not (torch.equal(out[0] * d, big[0][:nb, :nw] * d)
+                and torch.equal(out[1], big[1][:nb, :nw * A.PACK])
+                and torch.equal(out[2], big[2][:nb])):
+            raise RuntimeError(f"wave_fwd sweep: a launch of {nb} pairs "
+                               f"differs from the launch of {max(sizes)}")
+    log(f"[timing] wave_fwd sweep: every pair of every launch equal to the "
+        f"launch of {max(sizes)}")
+    return wi, big
+
+
 def wave_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
-    """wave_tb at growing launches of 11000-12288 columns, on tb/lo that
-    wave_fwd produced for the largest launch (smaller launches take its
-    first pairs): ms a launch, the longest walk's steps, ns and cycles a
-    step of that walk.  Every pair of every launch must come out as it does
-    in launches of `chunk` pairs; the first `chunk` pairs were just held
-    against wave_tb_plain."""
+    """wave_fwd_sweep at these sizes, then wave_tb at growing launches of
+    11000-12288 columns, on tb/lo that wave_fwd produced for the largest
+    launch (smaller launches take its first pairs): ms a launch, the longest
+    walk's steps, ns and cycles a step of that walk.  Every pair of every
+    launch must come out as it does in launches of `chunk` pairs; the first
+    `chunk` pairs were just held against wave_tb_plain."""
     import torch
     from nextdenovo_tpu_torch.ops import align as A
     more_q, more_t = make_pairs(rng, max(sizes) - len(qs), 11000, 12288)
-    wi = wave_inputs(qs + more_q, ts + more_t, dev)
-    tb, lo, _ = A.wave_fwd(wi["qpad"], wi["rtpad"], wi["mn"], wi["n_words"])
+    wi, (tb, lo, _) = wave_fwd_sweep(dev, qs + more_q, ts + more_t, sizes)
     mn = wi["mn"]
     want = [A.wave_tb(tb[s:s + chunk], lo[s:s + chunk], mn[s:s + chunk])
             for s in range(0, max(sizes), chunk)]

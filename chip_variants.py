@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Compare versions of the wave_tb kernel on one card, in turns.
+"""Compare versions of a wavefront kernel on one card, in turns.
 
     python3 chip_variants.py [--latency] A.cu [B.cu ...]
+    python3 chip_variants.py --kernel wave_fwd A.cu [B.cu ...]
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -18,6 +19,21 @@ clock nvidia-smi reports.  A copy that exports
 `int ndt_dbg(void* host, int n)`, copying 6 int64 counters a pair (loop
 cycles, cycles in word changes, cycles waiting for copies, steps, word
 changes) from an instrumented kernel, gets them summarised.
+
+--kernel wave_fwd: each A.cu is a whole copy of csrc/wave.cu whose
+wave_fwd_kernel differs (keep one copy of an earlier kernel among them as
+the yardstick).  Every copy is built into a library of its own and held,
+with the package's wave_fwd, against wave_fwd_plain on the ragged batches
+B = 1, 3, 5, 33, 130 of 200-1500 bases, the |m-n| > 200 set, the
+degenerate set and a batch of m + n from 0 to 24.6k: tb on the words
+wave_fwd_defined marks, lo and stats, exactly.  On 64 pairs of 11000-12288
+columns wave_fwd_plain runs once, against the package's kernel, which is
+then the yardstick for the copies.  Then the package's kernel and every
+copy are timed in turns, in the order given and in reverse, at 8, 64, 256
+and 640 pairs of 11000-12288 columns (CUDA events, 3 launches after a
+warm one, output buffers allocated once and lo zeroed once, so no
+allocation or fill is timed); the script prints ms a launch and cycles an
+anti-diagonal of the longest pair at the SM clock nvidia-smi reports.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -113,12 +129,130 @@ def latency(nvcc, flags, tmp):
         f"compare + select chain {o[3]:.1f}")
 
 
+def build_copies(nvcc, flags, tmp, srcs, symbol, argtypes):
+    """{name: ctypes library} for each copy, all nvcc processes at once."""
+    procs = []
+    for k, src in enumerate(srcs):
+        so = os.path.join(tmp, f"v{k}.so")
+        procs.append((os.path.basename(src)[:-3], so,
+                      compile_so(nvcc, flags, src, so)))
+    libs = {}
+    for name, so, p in procs:
+        if p.wait() != 0:
+            raise RuntimeError(f"{name}: build failed\n"
+                               f"{p.stdout.read().decode()}")
+        lib = ctypes.CDLL(so)
+        getattr(lib, symbol).restype = ctypes.c_int
+        getattr(lib, symbol).argtypes = argtypes
+        libs[name] = lib
+    return libs
+
+
+def main_wave_fwd(srcs) -> int:
+    import numpy as np
+    import torch
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import align as A
+    c.phase_env()
+    _build.build(native=False)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs = {"package": _build.kernels()}
+    libs.update(build_copies(_build.find_nvcc(), _build.NVCC_FLAGS,
+                             tempfile.mkdtemp(prefix="chip_variants_"), srcs,
+                             "ndt_wave_fwd",
+                             [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]))
+    d = torch.device("cuda")
+
+    def buffers(wi):
+        B, nw = wi["qpad"].shape[0], wi["n_words"]
+        return (torch.empty((B, nw, A.BAND_W), dtype=torch.int32, device=d),
+                torch.zeros((B, nw * A.PACK), dtype=torch.int32, device=d),
+                torch.empty((B, 2), dtype=torch.int32, device=d))
+
+    def run(lib, wi, out):
+        B, QP = wi["qpad"].shape
+        nw = wi["n_words"]
+        rc = lib.ndt_wave_fwd(
+            wi["qpad"].data_ptr(), wi["rtpad"].data_ptr(), wi["mn"].data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B, QP,
+            wi["rtpad"].shape[1], nw, nw * A.PACK,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: error {rc}")
+        return out
+
+    def defined(wi, out):
+        words = A.wave_fwd_defined(wi["mn"], wi["n_words"])[:, :, None]
+        return (torch.where(words, out[0], 0), out[1], out[2])
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    rng = np.random.default_rng(7)
+    sets = [(f"ragged B={b}", c.make_pairs(rng, b, 200, 1500))
+            for b in (1, 3, 5, 33, 130)]
+    qs, ts = c.mixed_length_pairs(rng, n=40, hi=12300)
+    empty = np.zeros(0, np.int8)
+    sets += [("|m-n| > 200", c.skewed_pairs(rng)),
+             ("degenerate", c.degenerate_pairs(rng)),
+             ("mixed m+n 0..24.6k", ([empty] + qs, [empty] + ts))]
+    for tag, (qs, ts) in sets:
+        wi = c.wave_inputs(qs, ts, d)
+        want = defined(wi, A.wave_fwd_plain(wi["qpad"], wi["rtpad"], wi["mn"],
+                                            wi["n_words"]))
+        for name, lib in libs.items():
+            if not same(defined(wi, run(lib, wi, buffers(wi))), want):
+                raise RuntimeError(f"{name} differs from wave_fwd_plain on "
+                                   f"'{tag}'")
+        log(f"[variants] {tag}: every kernel equal to wave_fwd_plain")
+    qs, ts = c.make_pairs(rng, 640, 11000, 12288)
+    wi64 = c.wave_inputs(qs[:64], ts[:64], d)
+    want = defined(wi64, A.wave_fwd_plain(wi64["qpad"], wi64["rtpad"],
+                                          wi64["mn"], wi64["n_words"]))
+    if not same(defined(wi64, run(libs["package"], wi64, buffers(wi64))), want):
+        raise RuntimeError("the package's wave_fwd differs from "
+                           "wave_fwd_plain at 64 pairs of 11000-12288")
+    log("[variants] package wave_fwd equal to wave_fwd_plain at 64 pairs "
+        "of 11000-12288 columns")
+    sizes = (8, 64, 256, 640)
+    wis = {nb: c.wave_inputs(qs[:nb], ts[:nb], d) for nb in sizes}
+    outs = {nb: buffers(wis[nb]) for nb in sizes}
+    for nb in sizes:
+        want = defined(wis[nb], run(libs["package"], wis[nb], buffers(wis[nb])))
+        for name, lib in libs.items():
+            if not same(defined(wis[nb], run(lib, wis[nb], buffers(wis[nb]))),
+                        want):
+                raise RuntimeError(f"{name} differs from the package's "
+                                   f"wave_fwd at {nb} pairs")
+    log("[variants] every copy equal to the package's wave_fwd at "
+        + ", ".join(map(str, sizes)) + " pairs")
+    times = {}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            for nb in sizes:
+                _, ms = c.timed(lambda: run(libs[name], wis[nb], outs[nb]), 3)
+                times.setdefault((name, nb), []).append(ms)
+    mhz = c.sm_clock_mhz()
+    for nb in sizes:
+        diags = int((wis[nb]["m_np"] + wis[nb]["n_np"]).max()) + 1
+        for name in libs:
+            t = times[(name, nb)]
+            log(f"[variants] wave_fwd {name} {nb} pairs: "
+                + " / ".join(f"{x:.3f}" for x in t) + f" ms; "
+                f"{min(t) * 1e6 / diags * mhz / 1e3:.0f} cycles an "
+                f"anti-diagonal (longest pair {diags}, {mhz:.0f} MHz)")
+    return 0
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device available", file=sys.stderr)
         return 2
+    if argv[:2] == ["--kernel", "wave_fwd"]:
+        return main_wave_fwd(argv[2:])
     do_lat = "--latency" in argv
     srcs = [a for a in argv if a != "--latency"]
     import chip_smoke as c
@@ -131,21 +265,9 @@ def main(argv) -> int:
     tmp = tempfile.mkdtemp(prefix="chip_variants_")
     if do_lat:
         latency(nvcc, _build.NVCC_FLAGS, tmp)
-    procs = []
-    for k, src in enumerate(srcs):
-        so = os.path.join(tmp, f"v{k}.so")
-        procs.append((os.path.basename(src)[:-3], so,
-                      compile_so(nvcc, _build.NVCC_FLAGS, src, so)))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    libs = {}
-    for name, so, p in procs:
-        if p.wait() != 0:
-            raise RuntimeError(f"{name}: build failed\n"
-                               f"{p.stdout.read().decode()}")
-        lib = ctypes.CDLL(so)
-        lib.ndt_wave_tb.restype = ci
-        lib.ndt_wave_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        libs[name] = lib
+    libs = build_copies(nvcc, _build.NVCC_FLAGS, tmp, srcs, "ndt_wave_tb",
+                        [vp, vp, vp, vp, vp, ci, ci, ci, vp])
     d = torch.device("cuda")
 
     def run(lib, tb, lo, mn):

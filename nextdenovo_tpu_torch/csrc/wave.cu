@@ -2,13 +2,33 @@
 // forward pass and traceback.
 //
 // Replaces the Pallas kernels _fwd_kernel and _tb_kernel (R = 2) of
-// nextdenovo_tpu/ops/align.py.  wave_fwd: one block of 256 threads per pair,
-// one thread per band cell.  The last three wavefronts rotate through
-// shared memory (neighbour reads are w-1 / w / w+1), so one barrier per
-// anti-diagonal suffices.  Once per 16 anti-diagonals the block reduces the
-// wavefront to its (min, lowest index) and thread 0 plans the next 16 band
-// starts; every thread ORs its 16 two-bit decisions into one int32 and the
-// block stores them as one contiguous 1 KB row.
+// nextdenovo_tpu/ops/align.py.
+//
+// wave_fwd: one warp per pair, one pair a block (four a block measured the
+// same), warps finish on their own, no block barrier.  Lane l keeps band
+// cells 8l .. 8l+7 of wavefront a-1 in registers, and of a-2 the nine
+// values its step formed as `L`.  The band start lo never falls and rises by
+// s1 in {0, 1} a step (lo(a) = min(max(lo(a-1) + s_ad, a - n, 0), m,
+// lo(a-1) + 1) with lo(a-1) <= m), so cell w reads up / left at w + s1 - 1 /
+// w + s1 of a-1 and diag at w + s1 + s1(a-1) - 1 of a-2: one cell of a-1
+// crosses each lane edge a step (one shuffle), and a-2's crossing cell is
+// already in the previous step's L.  Once per word of 16 anti-diagonals
+// every lane plans the band itself: its 8 cells' (min, lowest index), five
+// xor-shuffle rounds, s_total = clip(argmin - 128, 0, 16).  A word whose
+// steps all lie inside 1 <= i <= m, 1 <= j <= n (known from lo(a0-1) alone)
+// has no clamp in its plan: s1 = 1 for its first s_total steps and 0 after,
+// so it runs as two loops with s1 fixed at compile time (no select on the
+// band shift, no edge test), during which one of the two code windows
+// stands still.  Other words take the general step (s1 read at run time,
+// the edge tests of the reference).  The codes a word reads are staged a
+// word ahead as bytes in a per-warp shared window (q from lo(a0-1), rt from
+// n - a0 + lo(a0-1) - 15, 384 each, clamped as the reference clamps); a
+// step reads a lane's 8 codes as three words and two funnel shifts, and
+// finds equal codes four at a time (byte_eq) and per cell by prmt's sign
+// mode.  Each cell shifts its 2-bit decision into its own bit-word, so a
+// lane stores its 8 words of a row as two 16-byte stores and the warp
+// writes the 1 KB row in one pass; lanes 0-15 store the word's lo, and lo
+// past the pair's last word is written 0.
 //
 // wave_tb: one warp per pair, four pairs a block, so a launch of 64 pairs
 // spreads over 16 SMs and every warp has a scheduler of its own.  The walk
@@ -42,15 +62,31 @@
 // wave_fwd leaves those rows undefined.  The precondition is wave_fwd's,
 // m + n < n_words * 16; a pair outside it gets no op and ok = 0.
 //
-// Bound on this card: operations for wave_fwd (~40 int32 operations for
-// each of the 256 cells of an anti-diagonal, ahead of the 64 B of decisions
-// it must write); the walk's chain for wave_tb (one op a step, each step
-// waiting on the last, at one warp's issue rate), which its bytes bound does
-// not see.  A block of
-// wave_fwd, and a warp of wave_tb, stops at its own pair's end, so pairs of
-// different length cost what they need.
+// wave_fwd, what must survive exactly (wave_fwd_plain, on every defined
+// word of tb, all of lo, stats): values are int32 and grow past INF (a cell
+// fed only by INF reads INF + 1, ...), so nothing is packed narrower; a
+// cell outside the matrix (i > m, j < 0, j > n) still writes the op its
+// three candidates give, on the codes at the clamped indices, before its
+// value becomes INF; codes compare as bytes, which tells apart any two of
+// pad_for_align's codes (int8 values); the plan takes the lowest index on
+// ties and s_total = 0 when the minimum is >= INF; a warp stops after its
+// own pair's last word, min((m + n) / 16, n_words - 1).
+//
+// Bound on this card: operations for wave_fwd (8 int32 operations a band
+// cell -- compare the codes, add to diag, min(up, left), add the gap, min,
+// two compares for the decision, insert its two bits -- for each of the 256
+// cells of an anti-diagonal, ahead of the 64 B of decisions it must write);
+// it issues ~107 instructions an anti-diagonal a lane in an inner word, at
+// two issue cycles each on a sub-partition's 16-lane integer pipes, and one
+// warp a pair leaves the card's other schedulers idle.  The walk's chain
+// for wave_tb (one op a step, each step waiting on the last, at one warp's
+// issue rate), which its bytes bound does not see.  A warp of either
+// kernel stops at its own pair's end, so pairs of different length cost
+// what they need.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -59,7 +95,141 @@ constexpr int PACK = 16;         // anti-diagonals per traceback word
 constexpr int INF = 1 << 28;
 constexpr int OP_DIAG = 0, OP_UP = 1, OP_LEFT = 2, OP_NONE = 3;
 
-__global__ void __launch_bounds__(W) wave_fwd_kernel(
+constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int CPL = W / 32;      // band cells a lane: lane l owns 8l .. 8l+7
+constexpr int WIN_WORDS = 96;    // 32-bit words (384 codes) of a code window
+
+// four codes (0..255 after truncation to a byte) into one word, first lowest
+__device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {
+    return __byte_perm(__byte_perm(c0, c1, 0x0040),
+                       __byte_perm(c2, c3, 0x0040), 0x5410);
+}
+
+// the lane's 8 codes from byte offset `off` of a window: two words
+__device__ __forceinline__ void codes8(const uint32_t* win, int off,
+                                       uint32_t& lo, uint32_t& hi) {
+    const uint32_t* p = win + (off >> 2);
+    const unsigned sh = (unsigned)(off & 3) * 8u;
+    const uint32_t w0 = p[0], w1 = p[1], w2 = p[2];
+    lo = __funnelshift_r(w0, w1, sh);
+    hi = __funnelshift_r(w1, w2, sh);
+}
+
+// -1 where byte K of x has its top bit set, else 0 (prmt's sign mode)
+template <int K>
+__device__ __forceinline__ int byte_sign(uint32_t x) {
+    int r;
+    asm("prmt.b32 %0, %1, 0, %2;" : "=r"(r) : "r"(x), "n"(0x8888 | 0x1111 * K));
+    return r;
+}
+
+// the top bit of each byte of a ^ b set where the bytes are equal
+__device__ __forceinline__ uint32_t byte_eq(uint32_t a, uint32_t b) {
+    const uint32_t x = a ^ b;
+    return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x);
+}
+
+// One anti-diagonal a for the lane's 8 cells.  s1 = lo(a) - lo(a-1) in
+// {0, 1}: fixed by S1 = 0 or 1, read at run time for S1 < 0.  v1 =
+// wavefront a-1 (replaced by a); P[k+1] = wavefront a-2 at cell k +
+// s1(a-1), k = -1 .. 7, as the step before formed it (its L).  The step
+// forms L[k+1] = v1[k + s1] (one cell across the lane edge by shuffle, INF
+// at the band's ends): up = L[k], left = L[k+1], and diag = wavefront a-2 at
+// k + s1 + s1(a-1) - 1 = P[k + s1].  eq_lo / eq_hi hold the top bit of byte
+// k where cell k's codes are equal.  EDGE keeps the matrix edge tests;
+// without it every cell lies inside 1 <= i <= m, 1 <= j <= n.
+template <int S1, bool EDGE>
+__device__ __forceinline__ void fwd_step(
+    int s1, int (&v1)[CPL], int (&P)[CPL + 1], uint32_t (&bits)[CPL],
+    uint32_t eq_lo, uint32_t eq_hi, int lane, int i0, int a, int m, int n) {
+    const bool sh = S1 < 0 ? s1 != 0 : S1 == 1;
+    int nb;
+    if (S1 == 1) {
+        nb = __shfl_down_sync(FULL, v1[0], 1);
+        if (lane == 31) nb = INF;
+    } else if (S1 == 0) {
+        nb = __shfl_up_sync(FULL, v1[CPL - 1], 1);
+        if (lane == 0) nb = INF;
+    } else {
+        nb = __shfl_sync(FULL, sh ? v1[0] : v1[CPL - 1],
+                         sh ? lane + 1 : lane - 1);
+        if (lane == (sh ? 31 : 0)) nb = INF;
+    }
+    int L[CPL + 1];
+    L[0] = sh ? v1[0] : nb;
+#pragma unroll
+    for (int k = 0; k < CPL - 1; ++k) L[k + 1] = sh ? v1[k + 1] : v1[k];
+    L[CPL] = sh ? nb : v1[CPL - 1];
+    int sm1[CPL];                        // sub - 1: -1 where the codes match
+    sm1[0] = byte_sign<0>(eq_lo);
+    sm1[1] = byte_sign<1>(eq_lo);
+    sm1[2] = byte_sign<2>(eq_lo);
+    sm1[3] = byte_sign<3>(eq_lo);
+    sm1[4] = byte_sign<0>(eq_hi);
+    sm1[5] = byte_sign<1>(eq_hi);
+    sm1[6] = byte_sign<2>(eq_hi);
+    sm1[7] = byte_sign<3>(eq_hi);
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) {
+        const int up = L[k], left = L[k + 1];
+        const int diag = sh ? P[k + 1] : P[k];
+        // v = min(diag + sub, up + 1, left + 1); ties DIAG > UP > LEFT
+        const int cdm = diag + sm1[k];
+        const bool pu = up <= left;
+        const int ul = pu ? up : left;
+        const bool pd = cdm <= ul;
+        int v = (pd ? cdm : ul) + 1;
+        uint32_t op = pd ? OP_DIAG : (pu ? OP_UP : OP_LEFT);
+        if (EDGE) {
+            const int i = i0 + k, j = a - i;
+            if (i == 0) {
+                v = j;
+                op = OP_LEFT;
+            }
+            if (j == 0) {
+                v = i;
+                op = OP_UP;
+            }
+            if (i < 0 || i > m || j < 0 || j > n) v = INF;
+        }
+        // step s of the word lands in bits 2s, 2s+1 after its 16 steps
+        bits[k] = __funnelshift_r(bits[k], op, 2);
+        v1[k] = v;
+    }
+#pragma unroll
+    for (int k = 0; k <= CPL; ++k) P[k] = L[k];
+}
+
+// Stage the codes a word reads: q[clamp(qb + p)] and rt[clamp(tb + p)] for
+// p in [0, 384), as bytes, lane l holding words l, l + 32, l + 64.
+struct Window {
+    int q[3][4], t[3][4];
+};
+
+__device__ __forceinline__ void window_load(
+    Window& w, const int32_t* __restrict__ q, const int32_t* __restrict__ rt,
+    int qb, int tb, int QP, int TP, int lane) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int p = 4 * (lane + 32 * r) + e;
+            w.q[r][e] = __ldg(q + min(max(qb + p, 0), QP - 1));
+            w.t[r][e] = __ldg(rt + min(max(tb + p, 0), TP - 1));
+        }
+    }
+}
+
+__device__ __forceinline__ void window_store(const Window& w, uint32_t* wq,
+                                             uint32_t* wt, int lane) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+        wq[lane + 32 * r] = pack4(w.q[r][0], w.q[r][1], w.q[r][2], w.q[r][3]);
+        wt[lane + 32 * r] = pack4(w.t[r][0], w.t[r][1], w.t[r][2], w.t[r][3]);
+    }
+}
+
+__global__ void __launch_bounds__(32) wave_fwd_kernel(
     const int32_t* __restrict__ qpad,    // (B, QP): sentinel, then query
     const int32_t* __restrict__ rtpad,   // (B, TP): sentinel, reversed target
     const int32_t* __restrict__ mn,      // (B, 2)
@@ -67,130 +237,153 @@ __global__ void __launch_bounds__(W) wave_fwd_kernel(
     int32_t* __restrict__ lo_out,        // (B, a_max) band start per anti-diag
     int32_t* __restrict__ stats,         // (B, 2) dist, reached
     int QP, int TP, int n_words, int a_max) {
+    // two code windows (the word's, the next one's), q then rt
+    __shared__ __align__(16) uint32_t win[2][2][WIN_WORDS];
+    const int lane = threadIdx.x;
     const int b = blockIdx.x;
-    const int w = threadIdx.x;
     const int m = mn[2 * b], n = mn[2 * b + 1];
     const int end = m + n;
     const int32_t* q = qpad + (size_t)b * QP;
     const int32_t* rt = rtpad + (size_t)b * TP;
+    int32_t* lop = lo_out + (size_t)b * a_max;
 
-    // three wavefront buffers with an INF guard cell on each side
-    __shared__ int vbuf[3][W + 2];
-    __shared__ int plan_lo[PACK], plan_s1[PACK], plan_s2[PACK];
-    __shared__ int red_v[W / 32], red_i[W / 32];
-    __shared__ int carry_lo[2];          // lo(a-1), lo(a-2) across words
-    __shared__ int out_stats[2];
+    int A[CPL], P[CPL + 1];              // wavefront a-1; a-2 as L of a-1
+#pragma unroll
+    for (int k = 0; k < CPL; ++k) A[k] = INF;
+#pragma unroll
+    for (int k = 0; k <= CPL; ++k) P[k] = INF;
+    int lo1 = 0;                         // lo(a-1)
+    int dist = INF, reached = 0;
 
-    for (int k = 0; k < 3; ++k) {
-        vbuf[k][w + 1] = INF;
-        if (w == 0) {
-            vbuf[k][0] = INF;
-            vbuf[k][W + 1] = INF;
-        }
+    // word 0 reads q from 0 and rt from n - 15 on
+    int qb = 0, tbase = n - 15;
+    {
+        Window w0;
+        window_load(w0, q, rt, qb, tbase, QP, TP, lane);
+        window_store(w0, win[0][0], win[0][1], lane);
     }
-    if (w == 0) {
-        carry_lo[0] = 0;
-        carry_lo[1] = 0;
-        out_stats[0] = INF;
-        out_stats[1] = 0;
-    }
-    int i1 = 0, i2 = 1, inew = 2;        // buffer roles: a-1, a-2, a
-    __syncthreads();
+    __syncwarp();
 
     const int last_word = min(end / PACK, n_words - 1);
     for (int word = 0; word <= last_word; ++word) {
         const int a0 = word * PACK;
-        // ---- (min, lowest index) of the newest wavefront
-        int bv = vbuf[i1][w + 1], bi = w;
+        const uint32_t* wq = win[word & 1][0];
+        const uint32_t* wt = win[word & 1][1];
+        // ---- the word's plan: (min, lowest index) of wavefront a0-1
+        int bv = A[0], bi = 0;
+#pragma unroll
+        for (int k = 1; k < CPL; ++k) {
+            if (A[k] < bv) {
+                bv = A[k];
+                bi = k;
+            }
+        }
+        bi += CPL * lane;
 #pragma unroll
         for (int d = 16; d >= 1; d >>= 1) {
-            const int ov = __shfl_down_sync(0xFFFFFFFFu, bv, d);
-            const int oi = __shfl_down_sync(0xFFFFFFFFu, bi, d);
+            const int ov = __shfl_xor_sync(FULL, bv, d);
+            const int oi = __shfl_xor_sync(FULL, bi, d);
             if (ov < bv || (ov == bv && oi < bi)) {
                 bv = ov;
                 bi = oi;
             }
         }
-        if ((w & 31) == 0) {
-            red_v[w >> 5] = bv;
-            red_i[w >> 5] = bi;
-        }
-        __syncthreads();
-        if (w == 0) {
-            int best_v = red_v[0], best_w = red_i[0];
-            for (int k = 1; k < W / 32; ++k) {
-                if (red_v[k] < best_v) {
-                    best_v = red_v[k];
-                    best_w = red_i[k];
-                }
-            }
-            int s_total = min(max(best_w - W / 2, 0), PACK);
-            if (best_v >= INF) s_total = 0;
-            int lo_m1 = carry_lo[0], lo_m2 = carry_lo[1];
-            for (int s = 0; s < PACK; ++s) {
-                const int a = a0 + s;
-                const int s_ad = (s_total > s) ? 1 : 0;
-                int lo_a = max(max(lo_m1 + s_ad, a - n), 0);
-                lo_a = min(min(lo_a, m), lo_m1 + 1);
-                plan_lo[s] = lo_a;
-                plan_s1[s] = lo_a - lo_m1;
-                plan_s2[s] = lo_a - lo_m2;
-                lo_m2 = lo_m1;
-                lo_m1 = lo_a;
-            }
-            carry_lo[0] = lo_m1;
-            carry_lo[1] = lo_m2;
-        }
-        __syncthreads();
-        if (w < PACK && a0 + w < a_max)
-            lo_out[(size_t)b * a_max + a0 + w] = plan_lo[w];
+        const int s_total = bv >= INF ? 0 : min(max(bi - W / 2, 0), PACK);
+        // ---- the next word's codes, from lo(a0-1): its band starts lie in
+        // [lo1, lo1 + 32) and its anti-diagonals 16 further on
+        Window nxt;
+        const int qb_n = lo1, tb_n = n - (a0 + PACK) + lo1 - 15;
+        if (word < last_word)
+            window_load(nxt, q, rt, qb_n, tb_n, QP, TP, lane);
 
-        uint32_t bits = 0u;
-        for (int s = 0; s < PACK; ++s) {
-            const int a = a0 + s;
-            const int lo_a = plan_lo[s];
-            const int s1 = plan_s1[s], s2 = plan_s2[s];
-            const int* v1 = vbuf[i1];
-            const int* v2 = vbuf[i2];
-            // predecessors: diag at w + s2 - 1 of wavefront a-2; up at
-            // w + s1 - 1 and left at w + s1 of wavefront a-1 (+1: guard)
-            const int diag = (s2 >= 0 && s2 <= 2) ? v2[w + s2] : INF;
-            const int up = (s1 >= 0 && s1 <= 1) ? v1[w + s1] : INF;
-            const int left = (s1 >= 0 && s1 <= 1) ? v1[w + s1 + 1] : INF;
-            const int i = lo_a + w;
-            const int j = a - i;
-            const int qi = min(max(i, 0), QP - 1);
-            const int ti = min(max(n - j + 1, 0), TP - 1);
-            const int sub = (q[qi] == rt[ti]) ? 0 : 1;
-            const int cd = diag + sub, cu = up + 1, cl = left + 1;
-            int vnew = min(cd, min(cu, cl));
-            int op = (vnew == cd) ? OP_DIAG : ((vnew == cu) ? OP_UP : OP_LEFT);
-            if (i == 0) {
-                vnew = j;
-                op = OP_LEFT;
+        uint32_t bits[CPL];
+#pragma unroll
+        for (int k = 0; k < CPL; ++k) bits[k] = 0u;
+        int my_lo = 0;
+        uint32_t q_lo, q_hi, t_lo, t_hi;
+        // every step of the word lies inside 1 <= i <= m, 1 <= j <= n: its
+        // band starts lie in [lo1, lo1 + 16]
+        const bool inner = lo1 >= 1 && lo1 + PACK + (W - 1) <= m
+                           && a0 - lo1 - W >= 1 && a0 + PACK - 1 - lo1 <= n;
+        if (inner) {
+            // no clamp of the plan acts: s1 = 1 for s < s_total, then 0.
+            // While s1 = 1 the query window moves a byte a step and the
+            // target's stands; then the other way round.
+            const int L0 = lo1;
+            const int oq = L0 + 1 - qb + CPL * lane;
+            const int ot = n - a0 + L0 + 2 - tbase + CPL * lane;
+            auto run = [&](int s, auto s1c) {
+                constexpr int S1 = decltype(s1c)::value;
+                if (S1)
+                    codes8(wq, oq + s, q_lo, q_hi);
+                else
+                    codes8(wt, ot - 1 + s_total - s, t_lo, t_hi);
+                fwd_step<S1, false>(S1, A, P, bits, byte_eq(q_lo, t_lo),
+                                    byte_eq(q_hi, t_hi), lane, 0, 0, m, n);
+            };
+            using one = std::integral_constant<int, 1>;
+            using zero = std::integral_constant<int, 0>;
+            int s = 0;
+            codes8(wt, ot, t_lo, t_hi);
+            for (; s + 2 <= s_total; s += 2) {
+                run(s, one());
+                run(s + 1, one());
             }
-            if (j == 0) {
-                vnew = i;
-                op = OP_UP;
+            if (s < s_total) run(s++, one());
+            codes8(wq, oq + s_total - 1, q_lo, q_hi);
+            for (; s + 2 <= PACK; s += 2) {
+                run(s, zero());
+                run(s + 1, zero());
             }
-            if (i < 0 || i > m || j < 0 || j > n) vnew = INF;
-            bits |= (uint32_t)op << (2 * s);
-            if (a == end) {
-                const int w_t = m - lo_a;
-                if (w == w_t) out_stats[0] = vnew;
-                if (w == 0) out_stats[1] = 1;
+            if (s < PACK) run(s, zero());
+            lo1 = L0 + s_total;
+            my_lo = L0 + min(lane + 1, s_total);
+        } else {
+#pragma unroll 1
+            for (int s = 0; s < PACK; ++s) {
+                // one anti-diagonal: plan lo(a), read the codes, step
+                const int a = a0 + s;
+                int lo_a = max(max(lo1 + (s_total > s ? 1 : 0), a - n), 0);
+                lo_a = min(min(lo_a, m), lo1 + 1);
+                codes8(wq, lo_a - qb + CPL * lane, q_lo, q_hi);
+                codes8(wt, n - a + lo_a + 1 - tbase + CPL * lane, t_lo, t_hi);
+                fwd_step<-1, true>(lo_a - lo1, A, P, bits,
+                                   byte_eq(q_lo, t_lo), byte_eq(q_hi, t_hi),
+                                   lane, lo_a + CPL * lane, a, m, n);
+                if (lane == s) my_lo = lo_a;
+                if (a == end) {
+                    const int w_t = m - lo_a;
+                    int cand = INF;
+#pragma unroll
+                    for (int k = 0; k < CPL; ++k)
+                        if (k == (w_t & (CPL - 1))) cand = A[k];
+                    cand = __shfl_sync(FULL, cand, (w_t >> 3) & 31);
+                    dist = (w_t >= 0 && w_t < W) ? cand : INF;
+                    reached = 1;
+                }
+                lo1 = lo_a;
             }
-            vbuf[inew][w + 1] = vnew;
-            __syncthreads();
-            const int t = i2;
-            i2 = i1;
-            i1 = inew;
-            inew = t;
         }
-        tb[((size_t)b * n_words + word) * W + w] = (int32_t)bits;
+        // ---- the word's 1 KB of decisions, 32 bytes a lane, and its lo
+        uint4* dst = (uint4*)(tb + ((size_t)b * n_words + word) * W + CPL * lane);
+        dst[0] = make_uint4(bits[0], bits[1], bits[2], bits[3]);
+        dst[1] = make_uint4(bits[4], bits[5], bits[6], bits[7]);
+        if (lane < PACK) lop[a0 + lane] = my_lo;
+        if (word < last_word) {
+            window_store(nxt, win[(word + 1) & 1][0], win[(word + 1) & 1][1],
+                         lane);
+            qb = qb_n;
+            tbase = tb_n;
+        }
+        __syncwarp();
     }
-    __syncthreads();
-    if (w < 2) stats[2 * b + w] = out_stats[w];
+    // lo past the last word is 0, as the plain version leaves it
+    for (int k = (last_word + 1) * (PACK / 4) + lane; k < a_max / 4; k += 32)
+        ((int4*)lop)[k] = make_int4(0, 0, 0, 0);
+    if (lane == 0) {
+        stats[2 * b] = dist;
+        stats[2 * b + 1] = reached;
+    }
 }
 
 constexpr int TB_WARPS = 4;      // pairs (one warp each) a block
@@ -378,7 +571,10 @@ int ndt_wave_fwd(const void* qpad, const void* rtpad, const void* mn,
                  void* tb, void* lo, void* stats, int B, int QP, int TP,
                  int n_words, int a_max, void* stream) {
     if (B <= 0) return 0;
-    wave_fwd_kernel<<<B, W, 0, (cudaStream_t)stream>>>(
+    // decisions leave 16 bytes a store, lo rows are zero-filled the same way
+    if (a_max != n_words * PACK || (uintptr_t)tb % 16 || (uintptr_t)lo % 16)
+        return (int)cudaErrorInvalidValue;
+    wave_fwd_kernel<<<B, 32, 0, (cudaStream_t)stream>>>(
         (const int32_t*)qpad, (const int32_t*)rtpad, (const int32_t*)mn,
         (int32_t*)tb, (int32_t*)lo, (int32_t*)stats, QP, TP, n_words, a_max);
     return (int)cudaGetLastError();

@@ -31,12 +31,17 @@ csrc/wave_fast.cu), each with a plain PyTorch version beside it that the
 wrapper uses for CPU tensors only:
 
   wave_fwd  replaces the Pallas kernel _fwd_kernel (R = 2) of
-            nextdenovo_tpu/ops/align.py.  One block of 256 threads per
-            pair, one thread per band cell, wavefronts in shared memory.
-            Bound by operations on this card (~40 int32 operations for
-            each of the 256 cells of an anti-diagonal, ahead of the 64 B of
-            decisions it must write); each word is one contiguous 1 KB
-            store and a block stops at its own pair's last anti-diagonal.
+            nextdenovo_tpu/ops/align.py.  One warp per pair, lane l holding
+            band cells 8l .. 8l+7 in registers; the band shifts by 0 or 1 a
+            step, so one shuffle a step brings the cell across a lane edge,
+            and no block barrier is needed.  Every lane plans the band from
+            a lane-then-shuffle argmin; words that touch no matrix edge run
+            with the shift fixed at compile time; codes are staged a word
+            ahead as bytes in shared memory.  Bound by operations on this
+            card (8 int32 operations for each of the 256 cells of an
+            anti-diagonal, ahead of the 64 B of decisions it must write); a
+            warp stops at its own pair's last word and writes lo past it as
+            0, so the wrapper allocates no zeroed buffer.
   wave_tb   replaces the Pallas kernel _tb_kernel (R = 2).  One warp per
             pair walks back from (m, n), all 32 lanes redundantly; the word
             rows (1 KB of decisions + 64 B of lo) stream ahead of the walk
@@ -212,7 +217,7 @@ def wave_fwd(qpad: torch.Tensor, rtpad: torch.Tensor, mn: torch.Tensor,
     check_tensor("mn", mn, (B, 2), torch.int32, dev)
     a_max = n_words * PACK
     tb = torch.empty((B, n_words, BAND_W), dtype=torch.int32, device=dev)
-    lo = torch.zeros((B, a_max), dtype=torch.int32, device=dev)
+    lo = torch.empty((B, a_max), dtype=torch.int32, device=dev)
     stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
