@@ -22,7 +22,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              also on one batch of m + n from 0 to 24.6k, and tb/lo from
              wave_fwd with lo moved by +-300 over a run of anti-diagonals in
              every other pair, so that walks leave the band mid-way (at
-             least one pair must end with ok = 0)
+             least one pair must end with ok = 0); wave_fast_tb, one warp a
+             pair, on tb/base from wave_fast_fwd for batches of 1, 3, 5, 33
+             and 130 pairs, one batch of m + n from 0 to 24.6k, and base
+             moved by +-300 over a run of words in every other pair (at
+             least one pair must end with ok = 0), and random decisions
+             whose walks step out of the band inside a word
   overlaps   find_overlaps on one fixed batch of reads gives identical
              records on the card and on the CPU
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
@@ -47,7 +52,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              columns (ms, cycles an anti-diagonal of the longest pair), every
              pair equal to the same pair in the launch of 640; wave_tb at the
              same sizes (ms, steps of the longest walk, ns and cycles a step),
-             every pair equal to the same pair in launches of 64
+             every pair equal to the same pair in launches of 64;
+             wave_fast_tb likewise at 8, 64, 256 and 640 pairs of
+             11000-12288 columns, on tb/base from wave_fast_fwd
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -232,6 +239,42 @@ def shift_lo(lo, mn, by=300):
         a1 = a0 + max(16, end[b] // 4)
         out[b, a0:a1] += by if b % 4 == 1 else -by
     return out
+
+
+def shift_base(base, mn, by=300):
+    """base with a run of words moved by +by (pairs 1, 5, 9, ...) or -by
+    (pairs 3, 7, ...) in every other pair: at the run's two ends the R = 1
+    walk's lane correction (clamped to +-127) throws it out of the band
+    mid-way, whatever the decisions say."""
+    out = base.clone()
+    end = (mn[:, 0] + mn[:, 1]).tolist()
+    for b in range(1, base.shape[0], 2):
+        w0 = end[b] // 3 // 16
+        w1 = w0 + max(1, end[b] // 4 // 16)
+        out[b, w0:w1] += by if b % 4 == 1 else -by
+    return out
+
+
+def random_fast_tb(rng, B=64, n_words=64):
+    """(tb, base, mn) of the R = 1 tier with decisions drawn at random
+    (DIAG 40 %, UP and LEFT 29 % each, NONE 2 %), bases rising by 0-16 a
+    word and walks that start near the band's edges as often as inside it:
+    walks step out of the band inside a word, stop at NONE, and cross words
+    with every correction from -8 to 8."""
+    import numpy as np
+    import torch
+    u = rng.random((B, n_words, 128, 16))
+    ops = ((u >= 0.40).astype(np.uint64) + (u >= 0.69) + (u >= 0.98))
+    tb = (ops << (2 * np.arange(16, dtype=np.uint64))).sum(axis=-1)
+    tb = tb.astype(np.uint32).view(np.int32)
+    base = np.cumsum(rng.integers(0, 17, (B, n_words)), axis=1)
+    end = rng.integers(0, n_words * 16, B)
+    edge = rng.choice([0, 1, 2, 125, 126, 127], B)
+    lane0 = np.where(rng.random(B) < 0.5, edge, rng.integers(0, 128, B))
+    m = lane0 + base[np.arange(B), end // 16] + (end % 16 + 1) // 2
+    mn = np.stack([m, end - m], axis=1).astype(np.int32)
+    return (torch.from_numpy(tb), torch.from_numpy(base.astype(np.int32)),
+            torch.from_numpy(mn))
 
 
 def carry_pairs(rng, n=16):
@@ -474,15 +517,23 @@ def compare_fast_kernels(qs, ts, dev, tag, reps=0):
     ops = diags * A.FAST_W * 35
     _record(res, tag, "wave_fast_fwd", (tb_k, base_k, wk[2]), wp, dict(
         t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
-    bk, bp, t = _run(lambda: A.wave_fast_tb(wk[0], wk[1], fi["mn"]),
-                     lambda: A.wave_fast_tb_plain(wk[0], wk[1], fi["mn"]),
-                     reps)
+    compare_wave_fast_tb(res, tag, wk[0], wk[1], fi["mn"], reps)
+    return res
+
+
+def compare_wave_fast_tb(res, tag, tb, base, mn, reps=0):
+    """wave_fast_tb against wave_fast_tb_plain on these tensors; returns the
+    kernel's (ops, ok)."""
+    from nextdenovo_tpu_torch.ops import align as A
+    B, nwd = tb.shape[0], tb.shape[1]
+    bk, bp, t = _run(lambda: A.wave_fast_tb(tb, base, mn),
+                     lambda: A.wave_fast_tb_plain(tb, base, mn), reps)
     steps = int((bk[0] != A.OP_NONE).sum().item())     # walk steps taken
     byt = steps * 8 + B * nwd * A.PACK + B * 9
     ops = steps * 20
     _record(res, tag, "wave_fast_tb", bk, bp, dict(
         t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
-    return res
+    return bk
 
 
 def compare_myers_kernels(qs, ts, dev, tag, reps=0, need_fail=False):
@@ -661,6 +712,7 @@ def phase_kernels(dev):
         log(f"[kernels] {tag}: " + ", ".join(
             f"{k} exact={v['exact']}" for k, v in r.items()))
     wave_tb_sets(dev, rng)
+    wave_fast_tb_sets(dev, rng)
     ext_sets = [("extender degenerate", ext_degenerate_pairs(rng)),
                 ("extender 256 tails <= 1024", ext_tail_pairs(rng, 256)),
                 ("extender |m-n| > 200", ext_skewed_pairs(rng))]
@@ -709,6 +761,45 @@ def wave_tb_sets(dev, rng):
             f"{int((wi['m_np'] + wi['n_np']).max())}")
         if by and n_ok == len(qs):
             raise RuntimeError(f"'{tag}': no walk left the band (all ok)")
+
+
+def wave_fast_tb_sets(dev, rng):
+    """wave_fast_tb, one warp a pair, against wave_fast_tb_plain on tb/base
+    from wave_fast_fwd: ragged batches, walks of 0 to 24.6k anti-diagonals
+    in one launch, and walks that leave the band mid-way (base shifted; at
+    least one pair must end with ok = 0); then on decisions drawn at random
+    (random_fast_tb)."""
+    import numpy as np
+    from nextdenovo_tpu_torch.ops import align as A
+    sets = [(f"fast ragged B={b}", make_pairs(rng, b, 200, 1500), 0)
+            for b in (1, 3, 5, 33, 130)]
+    qs, ts = mixed_length_pairs(rng, n=40, hi=12300)
+    empty = np.zeros(0, np.int8)
+    sets += [("fast mixed m+n 0..24.6k", ([empty] + qs, [empty] + ts), 0),
+             ("fast band exits (base +-300)", make_pairs(rng, 64, 1000, 3000),
+              300)]
+    for tag, (qs, ts), by in sets:
+        fi = fast_inputs(qs, ts, dev)
+        tb, base, _ = A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"],
+                                      fi["n_words"])
+        if by:
+            base = shift_base(base, fi["mn"], by)
+        res = {}
+        _, ok = compare_wave_fast_tb(res, tag, tb, base, fi["mn"])
+        n_ok = int(ok.sum().item())
+        log(f"[kernels] {tag}: wave_fast_tb exact="
+            f"{res['wave_fast_tb']['exact']}, {n_ok} of {len(qs)} pairs ok, "
+            f"max m+n {int((fi['m_np'] + fi['n_np']).max())}")
+        if by and n_ok == len(qs):
+            raise RuntimeError(f"'{tag}': no walk left the band (all ok)")
+    # walks that step out of the band inside a word and stop at the ring's
+    # sentinel lanes, which the decisions of wave_fast_fwd seldom give
+    tb, base, mn = (x.to(dev) for x in random_fast_tb(rng))
+    res = {}
+    _, ok = compare_wave_fast_tb(res, "fast random decisions", tb, base, mn)
+    log(f"[kernels] fast random decisions: wave_fast_tb exact="
+        f"{res['wave_fast_tb']['exact']}, {int(ok.sum().item())} of "
+        f"{len(ok)} pairs ok")
 
 
 def phase_overlaps(dev):
@@ -1187,6 +1278,47 @@ def wave_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
     torch.cuda.empty_cache()
 
 
+def wave_fast_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
+    """wave_fast_tb at growing launches of 11000-12288 columns, on tb/base
+    that wave_fast_fwd produced for the largest launch (smaller launches
+    take its first pairs): ms a launch, the longest walk's steps, ns and
+    cycles a step of that walk.  Every pair of every launch must come out
+    as it does in launches of `chunk` pairs; the first `chunk` pairs were
+    just held against wave_fast_tb_plain."""
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    more_q, more_t = make_pairs(rng, max(sizes) - len(qs), 11000, 12288)
+    fi = fast_inputs(qs + more_q, ts + more_t, dev)
+    tb, base, _ = A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"],
+                                  fi["n_words"])
+    mn = fi["mn"]
+    want = [A.wave_fast_tb(tb[s:s + chunk], base[s:s + chunk],
+                           mn[s:s + chunk])
+            for s in range(0, max(sizes), chunk)]
+    want_ops = torch.cat([w[0] for w in want])
+    want_ok = torch.cat([w[1] for w in want])
+    steps = (want_ops != A.OP_NONE).sum(dim=1)
+    for nb in sizes:
+        (ops, ok), ms = timed(
+            lambda: A.wave_fast_tb(tb[:nb], base[:nb], mn[:nb]), 5)
+        mhz = sm_clock_mhz()
+        longest = int(steps[:nb].max().item())
+        ns = ms * 1e6 / longest
+        log(f"[timing] wave_fast sweep: {nb} pairs x "
+            f"{fi['n_words'] * A.PACK} anti-diagonals: wave_fast_tb "
+            f"{ms:.3f} ms; longest walk {longest} steps "
+            f"({int(steps[:nb].sum().item())} in all) = {ns:.1f} ns a step = "
+            f"{ns * mhz / 1e3:.0f} cycles a step at {mhz:.0f} MHz")
+        if not (torch.equal(ops, want_ops[:nb])
+                and torch.equal(ok, want_ok[:nb])):
+            raise RuntimeError(f"wave_fast sweep: a launch of {nb} pairs "
+                               f"differs from launches of {chunk}")
+    log(f"[timing] wave_fast sweep: every pair of every launch equal to "
+        f"launches of {chunk}")
+    del tb, base, want, want_ops
+    torch.cuda.empty_cache()
+
+
 def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
     """Kernels at their path's shape: a Myers launch of 640 pairs of up to
     12288 columns (the small end of the main path's launches; myers_sweep
@@ -1209,6 +1341,7 @@ def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
     qs, ts = make_pairs(rng, 64, 11000, 12288)
     out.update(compare_fast_kernels(qs, ts, dev, "R=1 shape (wave_fast)",
                                     reps=3))
+    wave_fast_sweep(dev, rng, qs, ts)
     # the extender: tails are min(1024, hang) long on both sides, so a
     # pair's m + n is 2048 for the share `full` of full-length tails
     lo, hi = 33, 1024

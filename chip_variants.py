@@ -3,6 +3,7 @@
 
     python3 chip_variants.py [--latency] A.cu [B.cu ...]
     python3 chip_variants.py --kernel wave_fwd A.cu [B.cu ...]
+    python3 chip_variants.py --kernel wave_fast_tb A.cu [B.cu ...]
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -34,6 +35,22 @@ and 640 pairs of 11000-12288 columns (CUDA events, 3 launches after a
 warm one, output buffers allocated once and lo zeroed once, so no
 allocation or fill is timed); the script prints ms a launch and cycles an
 anti-diagonal of the longest pair at the SM clock nvidia-smi reports.
+
+--kernel wave_fast_tb: each A.cu is a whole copy of csrc/wave_fast.cu
+whose wave_fast_tb_kernel differs (keep one copy of an earlier kernel among
+them as the yardstick).  Every copy is built into a library of its own and
+held, with the package's wave_fast_tb, against wave_fast_tb_plain on tb/base
+from the package's wave_fast_fwd for the ragged batches B = 1, 3, 5, 33, 130
+of 200-1500 bases, the degenerate set, a batch of m + n from 0 to 24.6k and
+64 pairs of 1-3 kb with base moved so that walks leave the band
+(chip_smoke.shift_base), and on random decisions (chip_smoke.random_fast_tb):
+ops and ok, exactly.  On 640 pairs of 11000-12288 columns
+wave_fast_tb_plain runs once on the first 64, against the package's kernel,
+which is then the yardstick for the copies at 8, 64, 256 and 640 pairs.  Then the package's kernel and every copy are timed in turns, in the
+order given and in reverse, at those sizes (CUDA events, 5 launches after a
+warm one, each with its OP_NONE prefill of ops, which copies that write only
+the slots they visit need); the script prints ms a launch and cycles a step
+of the longest walk at the SM clock nvidia-smi reports.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -245,6 +262,107 @@ def main_wave_fwd(srcs) -> int:
     return 0
 
 
+def main_wave_fast_tb(srcs) -> int:
+    import numpy as np
+    import torch
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import align as A
+    c.phase_env()
+    _build.build(native=False)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    libs = {"package": _build.kernels()}
+    libs.update(build_copies(_build.find_nvcc(), _build.NVCC_FLAGS,
+                             tempfile.mkdtemp(prefix="chip_variants_"), srcs,
+                             "ndt_wave_fast_tb",
+                             [vp, vp, vp, vp, vp, ci, ci, ci, vp]))
+    d = torch.device("cuda")
+
+    def run(lib, tb, base, mn):
+        B, nw, _ = tb.shape
+        ops = torch.full((B, nw * A.PACK), A.OP_NONE, dtype=torch.uint8,
+                         device=d)
+        ok = torch.empty(B, dtype=torch.uint8, device=d)
+        rc = lib.ndt_wave_fast_tb(
+            tb.data_ptr(), base.data_ptr(), mn.data_ptr(), ops.data_ptr(),
+            ok.data_ptr(), B, nw, nw * A.PACK,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"launch failed: error {rc}")
+        return ops, ok.to(torch.bool)
+
+    def forward(qs, ts):
+        fi = c.fast_inputs(qs, ts, d)
+        tb, base, _ = A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"],
+                                      fi["n_words"])
+        return tb, base, fi["mn"]
+
+    def same(x, y):
+        return all(torch.equal(a, b) for a, b in zip(x, y))
+
+    rng = np.random.default_rng(7)
+    sets = [(f"ragged B={b}", c.make_pairs(rng, b, 200, 1500), 0)
+            for b in (1, 3, 5, 33, 130)]
+    qs, ts = c.mixed_length_pairs(rng, n=40, hi=12300)
+    empty = np.zeros(0, np.int8)
+    sets += [("degenerate", c.degenerate_pairs(rng), 0),
+             ("mixed m+n 0..24.6k", ([empty] + qs, [empty] + ts), 0),
+             ("band exits (base +-300)", c.make_pairs(rng, 64, 1000, 3000),
+              300)]
+    inputs = []
+    for tag, (qs, ts), by in sets:
+        tb, base, mn = forward(qs, ts)
+        if by:
+            base = c.shift_base(base, mn, by)
+        inputs.append((tag, tb, base, mn))
+    inputs.append(("random decisions",
+                   *(x.to(d) for x in c.random_fast_tb(rng))))
+    for tag, tb, base, mn in inputs:
+        want = A.wave_fast_tb_plain(tb, base, mn)
+        for name, lib in libs.items():
+            if not same(run(lib, tb, base, mn), want):
+                raise RuntimeError(f"{name} differs from wave_fast_tb_plain "
+                                   f"on '{tag}'")
+        log(f"[variants] {tag}: every kernel equal to wave_fast_tb_plain "
+            f"({int(want[1].sum())} of {len(mn)} ok)")
+    qs, ts = c.make_pairs(rng, 640, 11000, 12288)
+    tb, base, mn = forward(qs, ts)
+    if not same(run(libs["package"], tb[:64], base[:64], mn[:64]),
+                A.wave_fast_tb_plain(tb[:64], base[:64], mn[:64])):
+        raise RuntimeError("the package's wave_fast_tb differs from "
+                           "wave_fast_tb_plain at 64 pairs of 11000-12288")
+    log("[variants] package wave_fast_tb equal to wave_fast_tb_plain at 64 "
+        "pairs of 11000-12288 columns")
+    sizes = (8, 64, 256, 640)
+    want = {nb: run(libs["package"], tb[:nb], base[:nb], mn[:nb])
+            for nb in sizes}
+    for nb in sizes:
+        for name, lib in libs.items():
+            if not same(run(lib, tb[:nb], base[:nb], mn[:nb]), want[nb]):
+                raise RuntimeError(f"{name} differs from the package's "
+                                   f"wave_fast_tb at {nb} pairs")
+    log("[variants] every copy equal to the package's wave_fast_tb at "
+        + ", ".join(map(str, sizes)) + " pairs")
+    times = {}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            for nb in sizes:
+                _, ms = c.timed(lambda: run(libs[name], tb[:nb], base[:nb],
+                                            mn[:nb]), 5)
+                times.setdefault((name, nb), []).append(ms)
+    steps = (want[max(sizes)][0] != A.OP_NONE).sum(dim=1)
+    mhz = c.sm_clock_mhz()
+    for nb in sizes:
+        longest = int(steps[:nb].max())
+        for name in libs:
+            t = times[(name, nb)]
+            log(f"[variants] wave_fast_tb {name} {nb} pairs: "
+                + " / ".join(f"{x:.3f}" for x in t) + f" ms; "
+                f"{min(t) * 1e6 / longest * mhz / 1e3:.0f} cycles a step "
+                f"(longest walk {longest} steps, {mhz:.0f} MHz)")
+    return 0
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -253,6 +371,8 @@ def main(argv) -> int:
         return 2
     if argv[:2] == ["--kernel", "wave_fwd"]:
         return main_wave_fwd(argv[2:])
+    if argv[:2] == ["--kernel", "wave_fast_tb"]:
+        return main_wave_fast_tb(argv[2:])
     do_lat = "--latency" in argv
     srcs = [a for a in argv if a != "--latency"]
     import chip_smoke as c

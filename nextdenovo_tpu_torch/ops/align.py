@@ -59,9 +59,15 @@ wrapper uses for CPU tensors only:
             the newest wavefront goes through shared memory.  Bound by
             operations, like wave_fwd at half the cells.
   wave_fast_tb   replaces the Pallas kernel _tb_onehot_kernel (R = 1).
-            The reference's one-hot lane vector is a serial walk: one
-            thread per pair steps (word, step, lane) back from (m, n).
-            Latency-bound, like wave_tb.
+            The reference's one-hot lane vector is a serial walk: one warp
+            per pair steps (word, step, lane) back from (m, n), all 32 lanes
+            redundantly, as wave_tb does; the 512 B word rows and their
+            bases stream ahead of the walk through a cp.async ring in
+            shared memory.  The lane moves are static under the fixed
+            cadence, so a step is one shared load and a pick among three
+            addresses, and OP_NONE sentinel words beside each ring row stop
+            a walk that steps out of the band without a bound test.  Bound
+            by the walk, not by bytes; it writes every byte of ops.
 """
 from __future__ import annotations
 
@@ -491,9 +497,14 @@ def wave_fast_tb(tb: torch.Tensor, base: torch.Tensor, mn: torch.Tensor):
     word w from word w + 1 the lane moves by base[w+1] - base[w] - 8.  The
     walk stops at anti-diagonal 0; a lane that leaves the band ends it.
 
+    Precondition (as wave_fast_fwd's): m + n < n_words * 16.  No word above
+    (m + n) // 16 is read, so rows wave_fast_fwd leaves undefined there do
+    not matter (wave_fwd_defined); a pair outside the precondition gets no
+    op and ok = False.
+
     Returns (ops (B, n_words * 16) uint8: the op taken at anti-diagonal a in
     slot a, OP_NONE elsewhere; ok (B,) bool: the walk ended on cell (0, 0),
-    lane -base[0]).
+    lane -base[0]).  The kernel writes every byte of ops.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     if tb.device.type == "cpu":
@@ -504,7 +515,7 @@ def wave_fast_tb(tb: torch.Tensor, base: torch.Tensor, mn: torch.Tensor):
     check_tensor("tb", tb, (B, n_words, FAST_W), torch.int32, dev)
     check_tensor("base", base, (B, n_words), torch.int32, dev)
     check_tensor("mn", mn, (B, 2), torch.int32, dev)
-    ops = torch.full((B, a_max), OP_NONE, dtype=torch.uint8, device=dev)
+    ops = torch.empty((B, a_max), dtype=torch.uint8, device=dev)
     ok = torch.empty(B, dtype=torch.uint8, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
