@@ -22,12 +22,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              also on one batch of m + n from 0 to 24.6k, and tb/lo from
              wave_fwd with lo moved by +-300 over a run of anti-diagonals in
              every other pair, so that walks leave the band mid-way (at
-             least one pair must end with ok = 0); wave_fast_tb, one warp a
-             pair, on tb/base from wave_fast_fwd for batches of 1, 3, 5, 33
-             and 130 pairs, one batch of m + n from 0 to 24.6k, and base
-             moved by +-300 over a run of words in every other pair (at
-             least one pair must end with ok = 0), and random decisions
-             whose walks step out of the band inside a word
+             least one pair must end with ok = 0); wave_fast_fwd and
+             wave_fast_tb, one warp a pair each, on batches of 1, 3, 5, 33
+             and 130 pairs, one batch of m + n from 0 to 24.6k and pairs
+             with |m-n| > 200 whose re-centring reaches -8 and 8 and meets
+             both clamps; wave_fast_tb also with base moved by +-300 over a
+             run of words in every other pair (at least one pair must end
+             with ok = 0), and on random decisions whose walks step out of
+             the band inside a word
   overlaps   find_overlaps on one fixed batch of reads gives identical
              records on the card and on the CPU
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
@@ -53,8 +55,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              pair equal to the same pair in the launch of 640; wave_tb at the
              same sizes (ms, steps of the longest walk, ns and cycles a step),
              every pair equal to the same pair in launches of 64;
-             wave_fast_tb likewise at 8, 64, 256 and 640 pairs of
-             11000-12288 columns, on tb/base from wave_fast_fwd
+             wave_fast_fwd at 8, 64, 256 and 640 pairs of 11000-12288
+             columns (ms, cycles an anti-diagonal of the longest pair), every
+             pair equal to the same pair in launches of 64, and wave_fast_tb
+             at the same sizes on tb/base from wave_fast_fwd
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -220,6 +224,33 @@ def band_exit_pairs(rng, n=24):
         a = int(rng.integers(200, len(q) - 200))
         q = np.concatenate([q[:a], np.full(int(rng.integers(70, 121)), 3),
                             q[a:]]).astype(np.int8)
+        t = t.astype(np.int8)
+        if i % 2:
+            q, t = t, q
+        qs.append(q)
+        ts.append(t)
+    return qs, ts
+
+
+# the seed of fast_clamp_pairs wherever it runs, so that the CPU tests can
+# show what its pairs exercise on the card
+CLAMP_SEED = 91
+
+
+def fast_clamp_pairs(rng, n=8):
+    """|m - n| > 200 both ways, at most 2 kb a side and 5 % of differences:
+    one side lacks 220-500 bases, split between its two ends, so the R = 1
+    band has to move ahead of its cadence at both ends; wave_fast_fwd's
+    delta reaches -8 and 8, and its j-side and m-side clamps decide words."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.simulate import mutate_read
+    qs, ts = [], []
+    for i in range(n):
+        L = int(rng.integers(800, 2001))
+        t = rng.integers(0, 4, L).astype(np.uint8)
+        cut = int(rng.integers(220, 501))
+        a = int(rng.integers(0, cut + 1))
+        q = mutate_read(t[a:L - (cut - a)], 0.05, rng).astype(np.int8)
         t = t.astype(np.int8)
         if i % 2:
             q, t = t, q
@@ -498,9 +529,18 @@ def fast_inputs(qs, ts, dev):
                 m_np=m, n_np=n)
 
 
+def fwd_defined(fi, out):
+    """A forward pass's (tb, lo or base, stats) with tb zeroed on the words
+    wave_fwd_defined leaves undefined: what is held against the plain
+    version (the other two are defined in full)."""
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    defined = A.wave_fwd_defined(fi["mn"], fi["n_words"])[:, :, None]
+    return torch.where(defined, out[0], 0), out[1], out[2]
+
+
 def compare_fast_kernels(qs, ts, dev, tag, reps=0):
     """wave_fast_fwd / wave_fast_tb against their plain versions."""
-    import torch
     from nextdenovo_tpu_torch.ops import align as A
     res = {}
     fi = fast_inputs(qs, ts, dev)
@@ -510,12 +550,10 @@ def compare_fast_kernels(qs, ts, dev, tag, reps=0):
         lambda: A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"], nwd),
         lambda: A.wave_fast_fwd_plain(fi["qpad"], fi["rtpad"], fi["mn"], nwd),
         reps)
-    defined = A.wave_fwd_defined(fi["mn"], nwd)
-    tb_k = torch.where(defined[:, :, None], wk[0], 0)
-    base_k = torch.where(defined, wk[1], 0)
     byt = diags * (32 + 1) + int((fi["m_np"] + fi["n_np"]).sum()) * 4 + B * 16
-    ops = diags * A.FAST_W * 35
-    _record(res, tag, "wave_fast_fwd", (tb_k, base_k, wk[2]), wp, dict(
+    # the same least work of a band cell as wave_fwd's: 8 int32 operations
+    ops = diags * A.FAST_W * 8
+    _record(res, tag, "wave_fast_fwd", fwd_defined(fi, wk), wp, dict(
         t, shape=f"B={B} anti-diagonals={nwd * A.PACK}", **_bound(byt, ops)))
     compare_wave_fast_tb(res, tag, wk[0], wk[1], fi["mn"], reps)
     return res
@@ -764,11 +802,12 @@ def wave_tb_sets(dev, rng):
 
 
 def wave_fast_tb_sets(dev, rng):
-    """wave_fast_tb, one warp a pair, against wave_fast_tb_plain on tb/base
-    from wave_fast_fwd: ragged batches, walks of 0 to 24.6k anti-diagonals
-    in one launch, and walks that leave the band mid-way (base shifted; at
-    least one pair must end with ok = 0); then on decisions drawn at random
-    (random_fast_tb)."""
+    """wave_fast_fwd and wave_fast_tb, one warp a pair each, against their
+    plain versions: ragged batches, walks of 0 to 24.6k anti-diagonals in one
+    launch, pairs with |m - n| > 200 whose re-centring reaches -8 and 8 and
+    meets both clamps (fast_clamp_pairs), and walks that leave the band
+    mid-way (base shifted; at least one pair must end with ok = 0); then
+    wave_fast_tb on decisions drawn at random (random_fast_tb)."""
     import numpy as np
     from nextdenovo_tpu_torch.ops import align as A
     sets = [(f"fast ragged B={b}", make_pairs(rng, b, 200, 1500), 0)
@@ -776,12 +815,22 @@ def wave_fast_tb_sets(dev, rng):
     qs, ts = mixed_length_pairs(rng, n=40, hi=12300)
     empty = np.zeros(0, np.int8)
     sets += [("fast mixed m+n 0..24.6k", ([empty] + qs, [empty] + ts), 0),
+             ("fast |m-n| > 200 (clamps)",
+              fast_clamp_pairs(np.random.default_rng(CLAMP_SEED)), 0),
              ("fast band exits (base +-300)", make_pairs(rng, 64, 1000, 3000),
               300)]
     for tag, (qs, ts), by in sets:
         fi = fast_inputs(qs, ts, dev)
-        tb, base, _ = A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"],
-                                      fi["n_words"])
+        fwd = A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"],
+                              fi["n_words"])
+        tb, base, _ = fwd
+        res = {}
+        _record(res, tag, "wave_fast_fwd", fwd_defined(fi, fwd),
+                A.wave_fast_fwd_plain(fi["qpad"], fi["rtpad"], fi["mn"],
+                                      fi["n_words"]))
+        log(f"[kernels] {tag}: wave_fast_fwd exact="
+            f"{res['wave_fast_fwd']['exact']}, " + recentring(
+                fi, base, tag if "clamps" in tag else None))
         if by:
             base = shift_base(base, fi["mn"], by)
         res = {}
@@ -800,6 +849,34 @@ def wave_fast_tb_sets(dev, rng):
     log(f"[kernels] fast random decisions: wave_fast_tb exact="
         f"{res['wave_fast_tb']['exact']}, {int(ok.sum().item())} of "
         f"{len(ok)} pairs ok")
+
+
+def recentring(fi, base, tag=None):
+    """wave_fast_fwd's re-centring read back from its bases: delta =
+    base[w] - base[w - 1] - 8 on the defined words w >= 1, and the words
+    with delta != 0 that sit at the j-side bound (base = a0 + 7 - n) or at
+    the m-side bound (base = m - 8).  Returns a line for the log; given the
+    set's tag, raises unless delta reaches -8 and 8 and words sit at both
+    bounds."""
+    import numpy as np
+    from nextdenovo_tpu_torch.ops import align as A
+    b = base.cpu().numpy().astype(np.int64)
+    words = A.wave_fwd_defined(fi["mn"], fi["n_words"]).cpu().numpy()[:, 1:]
+    m, n = fi["m_np"][:, None], fi["n_np"][:, None]
+    a0 = A.PACK * np.arange(1, b.shape[1])[None, :]
+    d = np.diff(b, axis=1) - 8
+    moved = words & (d != 0)
+    j_words = int((moved & (b[:, 1:] == a0 + 7 - n)).sum())
+    m_words = int((moved & (b[:, 1:] == m - 8)).sum())
+    d = d[words]
+    line = (f"delta {int(d.min(initial=0))}..{int(d.max(initial=0))} over "
+            f"{len(d)} words, {j_words} at the j-side bound, {m_words} at "
+            f"the m-side bound")
+    if tag and not (len(d) and d.min() == -8 and d.max() == 8 and j_words
+                    and m_words):
+        raise RuntimeError(f"'{tag}': wave_fast_fwd's re-centring did not "
+                           f"reach -8 and 8 and both bounds ({line})")
+    return line
 
 
 def phase_overlaps(dev):
@@ -1278,19 +1355,68 @@ def wave_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
     torch.cuda.empty_cache()
 
 
+def _pad_words(x, n_words):
+    """x (B, words, ...) with zero words appended up to n_words."""
+    import torch
+    pad = torch.zeros((x.shape[0], n_words - x.shape[1], *x.shape[2:]),
+                      dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=1)
+
+
+def wave_fast_fwd_sweep(dev, qs, ts, sizes, chunk=64):
+    """wave_fast_fwd at growing launches (the first nb pairs): ms a launch
+    and cycles an anti-diagonal of the launch's longest pair.  Every pair of
+    every launch must come out as it does in launches of `chunk` pairs (tb
+    on the defined words, base, stats).  Returns the inputs and outputs of
+    the largest launch."""
+    import torch
+    from nextdenovo_tpu_torch.ops import align as A
+    want = []
+    for s in range(0, max(sizes), chunk):
+        f = fast_inputs(qs[s:s + chunk], ts[s:s + chunk], dev)
+        want.append(fwd_defined(f, A.wave_fast_fwd(
+            f["qpad"], f["rtpad"], f["mn"], f["n_words"])))
+    for nb in sizes:
+        fi = fast_inputs(qs[:nb], ts[:nb], dev)
+        nw = fi["n_words"]
+        out, ms = timed(lambda: A.wave_fast_fwd(fi["qpad"], fi["rtpad"],
+                                                fi["mn"], nw), 3)
+        mhz = sm_clock_mhz()
+        diags = int((fi["m_np"] + fi["n_np"]).max()) + 1
+        log(f"[timing] wave_fast_fwd sweep: {nb} pairs x {nw * A.PACK} "
+            f"anti-diagonals: wave_fast_fwd {ms:.3f} ms; longest pair "
+            f"{diags} anti-diagonals = {ms * 1e6 / diags * mhz / 1e3:.0f} "
+            f"cycles an anti-diagonal at {mhz:.0f} MHz")
+        got = fwd_defined(fi, out)
+        for c, w in enumerate(want[:(nb + chunk - 1) // chunk]):
+            s, e = c * chunk, min((c + 1) * chunk, nb)
+            words = max(nw, w[0].shape[1])
+            if not (torch.equal(_pad_words(got[0][s:e], words),
+                                _pad_words(w[0][:e - s], words))
+                    and torch.equal(_pad_words(got[1][s:e], words),
+                                    _pad_words(w[1][:e - s], words))
+                    and torch.equal(got[2][s:e], w[2][:e - s])):
+                raise RuntimeError(f"wave_fast_fwd sweep: pairs {s}..{e - 1} "
+                                   f"of a launch of {nb} differ from a "
+                                   f"launch of {chunk}")
+    log(f"[timing] wave_fast_fwd sweep: every pair of every launch equal to "
+        f"launches of {chunk}")
+    return fi, out
+
+
 def wave_fast_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
-    """wave_fast_tb at growing launches of 11000-12288 columns, on tb/base
-    that wave_fast_fwd produced for the largest launch (smaller launches
-    take its first pairs): ms a launch, the longest walk's steps, ns and
-    cycles a step of that walk.  Every pair of every launch must come out
-    as it does in launches of `chunk` pairs; the first `chunk` pairs were
-    just held against wave_fast_tb_plain."""
+    """wave_fast_fwd_sweep at these sizes, then wave_fast_tb at growing
+    launches of 11000-12288 columns, on tb/base that wave_fast_fwd produced
+    for the largest launch (smaller launches take its first pairs): ms a
+    launch, the longest walk's steps, ns and cycles a step of that walk.
+    Every pair of every launch must come out as it does in launches of
+    `chunk` pairs; the first `chunk` pairs were just held against
+    wave_fast_tb_plain."""
     import torch
     from nextdenovo_tpu_torch.ops import align as A
     more_q, more_t = make_pairs(rng, max(sizes) - len(qs), 11000, 12288)
-    fi = fast_inputs(qs + more_q, ts + more_t, dev)
-    tb, base, _ = A.wave_fast_fwd(fi["qpad"], fi["rtpad"], fi["mn"],
-                                  fi["n_words"])
+    fi, (tb, base, _) = wave_fast_fwd_sweep(dev, qs + more_q, ts + more_t,
+                                            sizes, chunk)
     mn = fi["mn"]
     want = [A.wave_fast_tb(tb[s:s + chunk], base[s:s + chunk],
                            mn[s:s + chunk])

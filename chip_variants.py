@@ -4,6 +4,7 @@
     python3 chip_variants.py [--latency] A.cu [B.cu ...]
     python3 chip_variants.py --kernel wave_fwd A.cu [B.cu ...]
     python3 chip_variants.py --kernel wave_fast_tb A.cu [B.cu ...]
+    python3 chip_variants.py --kernel wave_fast_fwd A.cu [B.cu ...]
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -21,18 +22,20 @@ clock nvidia-smi reports.  A copy that exports
 cycles, cycles in word changes, cycles waiting for copies, steps, word
 changes) from an instrumented kernel, gets them summarised.
 
---kernel wave_fwd: each A.cu is a whole copy of csrc/wave.cu whose
-wave_fwd_kernel differs (keep one copy of an earlier kernel among them as
-the yardstick).  Every copy is built into a library of its own and held,
-with the package's wave_fwd, against wave_fwd_plain on the ragged batches
-B = 1, 3, 5, 33, 130 of 200-1500 bases, the |m-n| > 200 set, the
+--kernel wave_fwd, --kernel wave_fast_fwd: each A.cu is a whole copy of
+csrc/wave.cu (csrc/wave_fast.cu) whose forward kernel differs (keep one copy
+of an earlier kernel among them as the yardstick).  Every copy is built into
+a library of its own and held, with the package's kernel, against its plain
+version on the ragged batches B = 1, 3, 5, 33, 130 of 200-1500 bases, the
+|m-n| > 200 sets (chip_smoke.skewed_pairs, and chip_smoke.fast_clamp_pairs,
+whose R = 1 re-centring reaches -8 and 8 and meets both clamps), the
 degenerate set and a batch of m + n from 0 to 24.6k: tb on the words
-wave_fwd_defined marks, lo and stats, exactly.  On 64 pairs of 11000-12288
-columns wave_fwd_plain runs once, against the package's kernel, which is
-then the yardstick for the copies.  Then the package's kernel and every
-copy are timed in turns, in the order given and in reverse, at 8, 64, 256
-and 640 pairs of 11000-12288 columns (CUDA events, 3 launches after a
-warm one, output buffers allocated once and lo zeroed once, so no
+wave_fwd_defined marks, lo (base) and stats, exactly.  On 64 pairs of
+11000-12288 columns the plain version runs once, against the package's
+kernel, which is then the yardstick for the copies at 8, 64, 256 and 640
+pairs.  Then the package's kernel and every copy are timed in turns, in the
+order given and in reverse, at those sizes (CUDA events, 3 launches after a
+warm one, output buffers allocated once and lo / base zeroed once, so no
 allocation or fill is timed); the script prints ms a launch and cycles an
 anti-diagonal of the longest pair at the SM clock nvidia-smi reports.
 
@@ -46,7 +49,8 @@ of 200-1500 bases, the degenerate set, a batch of m + n from 0 to 24.6k and
 (chip_smoke.shift_base), and on random decisions (chip_smoke.random_fast_tb):
 ops and ok, exactly.  On 640 pairs of 11000-12288 columns
 wave_fast_tb_plain runs once on the first 64, against the package's kernel,
-which is then the yardstick for the copies at 8, 64, 256 and 640 pairs.  Then the package's kernel and every copy are timed in turns, in the
+which is then the yardstick for the copies at 8, 64, 256 and 640 pairs.
+Then the package's kernel and every copy are timed in turns, in the
 order given and in reverse, at those sizes (CUDA events, 5 launches after a
 warm one, each with its OP_NONE prefill of ops, which copies that write only
 the slots they visit need); the script prints ms a launch and cycles a step
@@ -165,43 +169,50 @@ def build_copies(nvcc, flags, tmp, srcs, symbol, argtypes):
     return libs
 
 
-def main_wave_fwd(srcs) -> int:
+def main_forward(srcs, kernel) -> int:
+    """--kernel wave_fwd or wave_fast_fwd: the two forward passes differ
+    only in their C entry, their inputs and plain version and the width of
+    their second output (lo per anti-diagonal, base per word)."""
     import numpy as np
     import torch
     import chip_smoke as c
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.ops import align as A
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fast = kernel == "wave_fast_fwd"
+    symbol = "ndt_" + kernel
+    inputs = c.fast_inputs if fast else c.wave_inputs
+    plain = A.wave_fast_fwd_plain if fast else A.wave_fwd_plain
+    width = A.FAST_W if fast else A.BAND_W
+    # the sizes after n_words in the C entry: a_max for wave_fwd
+    extra = (lambda nw: ()) if fast else (lambda nw: (nw * A.PACK,))
     c.phase_env()
     _build.build(native=False)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
     libs = {"package": _build.kernels()}
-    libs.update(build_copies(_build.find_nvcc(), _build.NVCC_FLAGS,
-                             tempfile.mkdtemp(prefix="chip_variants_"), srcs,
-                             "ndt_wave_fwd",
-                             [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]))
+    libs.update(build_copies(
+        _build.find_nvcc(), _build.NVCC_FLAGS,
+        tempfile.mkdtemp(prefix="chip_variants_"), srcs, symbol,
+        [vp] * 6 + [ci] * (4 + len(extra(1))) + [vp]))
     d = torch.device("cuda")
 
     def buffers(wi):
         B, nw = wi["qpad"].shape[0], wi["n_words"]
-        return (torch.empty((B, nw, A.BAND_W), dtype=torch.int32, device=d),
-                torch.zeros((B, nw * A.PACK), dtype=torch.int32, device=d),
+        cols = nw if fast else nw * A.PACK
+        return (torch.empty((B, nw, width), dtype=torch.int32, device=d),
+                torch.zeros((B, cols), dtype=torch.int32, device=d),
                 torch.empty((B, 2), dtype=torch.int32, device=d))
 
     def run(lib, wi, out):
         B, QP = wi["qpad"].shape
         nw = wi["n_words"]
-        rc = lib.ndt_wave_fwd(
+        rc = getattr(lib, symbol)(
             wi["qpad"].data_ptr(), wi["rtpad"].data_ptr(), wi["mn"].data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), B, QP,
-            wi["rtpad"].shape[1], nw, nw * A.PACK,
+            wi["rtpad"].shape[1], nw, *extra(nw),
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"launch failed: error {rc}")
         return out
-
-    def defined(wi, out):
-        words = A.wave_fwd_defined(wi["mn"], wi["n_words"])[:, :, None]
-        return (torch.where(words, out[0], 0), out[1], out[2])
 
     def same(x, y):
         return all(torch.equal(a, b) for a, b in zip(x, y))
@@ -212,37 +223,40 @@ def main_wave_fwd(srcs) -> int:
     qs, ts = c.mixed_length_pairs(rng, n=40, hi=12300)
     empty = np.zeros(0, np.int8)
     sets += [("|m-n| > 200", c.skewed_pairs(rng)),
+             ("|m-n| > 200 (clamps)",
+              c.fast_clamp_pairs(np.random.default_rng(c.CLAMP_SEED))),
              ("degenerate", c.degenerate_pairs(rng)),
              ("mixed m+n 0..24.6k", ([empty] + qs, [empty] + ts))]
     for tag, (qs, ts) in sets:
-        wi = c.wave_inputs(qs, ts, d)
-        want = defined(wi, A.wave_fwd_plain(wi["qpad"], wi["rtpad"], wi["mn"],
-                                            wi["n_words"]))
+        wi = inputs(qs, ts, d)
+        want = c.fwd_defined(wi, plain(wi["qpad"], wi["rtpad"], wi["mn"],
+                                       wi["n_words"]))
         for name, lib in libs.items():
-            if not same(defined(wi, run(lib, wi, buffers(wi))), want):
-                raise RuntimeError(f"{name} differs from wave_fwd_plain on "
+            if not same(c.fwd_defined(wi, run(lib, wi, buffers(wi))), want):
+                raise RuntimeError(f"{name} differs from {kernel}_plain on "
                                    f"'{tag}'")
-        log(f"[variants] {tag}: every kernel equal to wave_fwd_plain")
+        log(f"[variants] {tag}: every kernel equal to {kernel}_plain")
     qs, ts = c.make_pairs(rng, 640, 11000, 12288)
-    wi64 = c.wave_inputs(qs[:64], ts[:64], d)
-    want = defined(wi64, A.wave_fwd_plain(wi64["qpad"], wi64["rtpad"],
-                                          wi64["mn"], wi64["n_words"]))
-    if not same(defined(wi64, run(libs["package"], wi64, buffers(wi64))), want):
-        raise RuntimeError("the package's wave_fwd differs from "
-                           "wave_fwd_plain at 64 pairs of 11000-12288")
-    log("[variants] package wave_fwd equal to wave_fwd_plain at 64 pairs "
-        "of 11000-12288 columns")
+    wi64 = inputs(qs[:64], ts[:64], d)
+    want = c.fwd_defined(wi64, plain(wi64["qpad"], wi64["rtpad"],
+                                     wi64["mn"], wi64["n_words"]))
+    got = run(libs["package"], wi64, buffers(wi64))
+    if not same(c.fwd_defined(wi64, got), want):
+        raise RuntimeError(f"the package's {kernel} differs from "
+                           f"{kernel}_plain at 64 pairs of 11000-12288")
+    log(f"[variants] package {kernel} equal to {kernel}_plain at 64 pairs "
+        f"of 11000-12288 columns")
     sizes = (8, 64, 256, 640)
-    wis = {nb: c.wave_inputs(qs[:nb], ts[:nb], d) for nb in sizes}
+    wis = {nb: inputs(qs[:nb], ts[:nb], d) for nb in sizes}
     outs = {nb: buffers(wis[nb]) for nb in sizes}
     for nb in sizes:
-        want = defined(wis[nb], run(libs["package"], wis[nb], buffers(wis[nb])))
+        wi = wis[nb]
+        want = c.fwd_defined(wi, run(libs["package"], wi, buffers(wi)))
         for name, lib in libs.items():
-            if not same(defined(wis[nb], run(lib, wis[nb], buffers(wis[nb]))),
-                        want):
+            if not same(c.fwd_defined(wi, run(lib, wi, buffers(wi))), want):
                 raise RuntimeError(f"{name} differs from the package's "
-                                   f"wave_fwd at {nb} pairs")
-    log("[variants] every copy equal to the package's wave_fwd at "
+                                   f"{kernel} at {nb} pairs")
+    log(f"[variants] every copy equal to the package's {kernel} at "
         + ", ".join(map(str, sizes)) + " pairs")
     times = {}
     for order in (list(libs), list(libs)[::-1]):
@@ -255,7 +269,7 @@ def main_wave_fwd(srcs) -> int:
         diags = int((wis[nb]["m_np"] + wis[nb]["n_np"]).max()) + 1
         for name in libs:
             t = times[(name, nb)]
-            log(f"[variants] wave_fwd {name} {nb} pairs: "
+            log(f"[variants] {kernel} {name} {nb} pairs: "
                 + " / ".join(f"{x:.3f}" for x in t) + f" ms; "
                 f"{min(t) * 1e6 / diags * mhz / 1e3:.0f} cycles an "
                 f"anti-diagonal (longest pair {diags}, {mhz:.0f} MHz)")
@@ -369,8 +383,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device available", file=sys.stderr)
         return 2
-    if argv[:2] == ["--kernel", "wave_fwd"]:
-        return main_wave_fwd(argv[2:])
+    if argv[:1] == ["--kernel"] and argv[1:2] in (["wave_fwd"],
+                                                  ["wave_fast_fwd"]):
+        return main_forward(argv[2:], argv[1])
     if argv[:2] == ["--kernel", "wave_fast_tb"]:
         return main_wave_fast_tb(argv[2:])
     do_lat = "--latency" in argv

@@ -54,10 +54,18 @@ wrapper uses for CPU tensors only:
             (m + n) // 16 and writes every byte of ops.
 
   wave_fast_fwd  replaces the Pallas kernel _fwd_kernel_fast (R = 1).
-            One block of 128 threads per pair; the neighbour pattern is
-            static (lane - 1 on even steps, lane + 1 on odd ones), so only
-            the newest wavefront goes through shared memory.  Bound by
-            operations, like wave_fwd at half the cells.
+            One warp per pair, lane l holding band cells 4l .. 4l+3 of the
+            last two wavefronts in registers; under the fixed cadence the
+            neighbours are static (UP lane - 1 on even steps, LEFT lane + 1
+            on odd ones), so one shuffle a step brings the cell across a
+            lane edge, and no block barrier is needed.  Every lane plans
+            the re-centring from a lane-then-warp argmin and shifts both
+            wavefronts through a guarded shared buffer; a word's codes are
+            staged a word ahead as bytes in shared memory; words that touch
+            no matrix edge run without the edge tests.  Bound by
+            operations, like wave_fwd at half the cells; a warp stops at its
+            own pair's last word and writes base past it as 0, so the
+            wrapper allocates no zeroed buffer.
   wave_fast_tb   replaces the Pallas kernel _tb_onehot_kernel (R = 1).
             The reference's one-hot lane vector is a serial walk: one warp
             per pair steps (word, step, lane) back from (m, n), all 32 lanes
@@ -416,7 +424,7 @@ def wave_fast_fwd(qpad: torch.Tensor, rtpad: torch.Tensor, mn: torch.Tensor,
     check_tensor("rtpad", rtpad, (B, TP), torch.int32, dev)
     check_tensor("mn", mn, (B, 2), torch.int32, dev)
     tb = torch.empty((B, n_words, FAST_W), dtype=torch.int32, device=dev)
-    base = torch.zeros((B, n_words), dtype=torch.int32, device=dev)
+    base = torch.empty((B, n_words), dtype=torch.int32, device=dev)
     stats = torch.empty((B, 2), dtype=torch.int32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
