@@ -30,8 +30,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              run of words in every other pair (at least one pair must end
              with ok = 0), and on random decisions whose walks step out of
              the band inside a word
-  overlaps   find_overlaps on one fixed batch of reads gives identical
-             records on the card and on the CPU
+  overlaps   find_overlaps on fixed batches of reads gives identical
+             records on the card and on the CPU: ONT reads at k = 17,
+             w = 10; HiFi reads (one longer than CHUNK_LP) at k = 51,
+             w = 51, the index's arrays identical too
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
              the CPU, with the launch counters set to 0 just before
   ext_path   input_type = corrected, task = assemble (stages 00, 04-06)
@@ -45,6 +47,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              just before and read just after; checks the markers, the
              share of corrected seeds, the identity of corrected reads,
              and the contigs against the simulated genome
+  hifi_path  read_type = hifi, task = all through the CLI entry on 0.4 %
+             error reads (30x, 15 kb mean) of a 1 Mb genome, with the launch
+             counters at 0 and the peak memory reset just before; checks
+             the markers, that stage 01 sketched at k = w = 51, a launch of
+             myers_fwd, the identity of corrected reads against the truth
+             they cover, the median share of its seed that a corrected
+             read kept (at least 0.5), the longest contig (at least 0.3 x
+             the genome), and the contigs' 31-mer identity and total
   timing     each kernel at its path's shape against its plain version
              (exact equality again), with the least time the card could
              take for the same work; the Myers kernels also at 640, 1280,
@@ -67,7 +77,8 @@ Without a CUDA device it exits non-zero and prints no result.  The last
 line of stdout is {"ok": true, "device": {...}}; the line before the card
 line holds {"kernels": [...]}: four kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
-pair's from the band_align(R=1) run.
+pair's from the band_align(R=1) run; `launches_hifi` holds each kernel's
+launches on the HiFi run.
 """
 from __future__ import annotations
 
@@ -86,6 +97,12 @@ GENOME_SIZE = 1_000_000
 COVERAGE = 30
 MEAN_LEN = 8000
 ERROR_RATE = 0.10
+# the HiFi path: the coverage and error of SCALE_HIFI_5M_r5.json at the
+# main path's genome size
+HIFI_GENOME_SIZE = 1_000_000
+HIFI_COVERAGE = 30
+HIFI_MEAN_LEN = 15000
+HIFI_ERROR_RATE = 0.004
 
 # published peaks of one H100 SXM used for the bounds
 MEM_BYTES_PER_S = 3.35e12
@@ -879,13 +896,61 @@ def recentring(fi, base, tag=None):
     return line
 
 
+def _same_records(a, b, what):
+    """Two OvlBlocks hold the same records, field by field."""
+    import numpy as np
+    if len(a) == 0:
+        raise RuntimeError(f"find_overlaps gave no records on {what}")
+    if sorted(a.data) != sorted(b.data) or len(a) != len(b):
+        raise RuntimeError(f"find_overlaps on {what}: {len(a)} records on "
+                           f"the card, {len(b)} on the CPU")
+    for k in sorted(a.data):
+        x, y = np.asarray(a.data[k]), np.asarray(b.data[k])
+        if not np.array_equal(x, y):
+            i = int(np.nonzero(x != y)[0][0])
+            raise RuntimeError(
+                f"find_overlaps differs between the card and the CPU on "
+                f"{what}: field {k} record {i}: {x[i]} != {y[i]}")
+
+
+def _same_index(a, b, what):
+    """Two MiniIndexes hold the same arrays."""
+    if a.n != b.n:
+        raise RuntimeError(f"index on {what}: {a.n} entries on the card, "
+                           f"{b.n} on the CPU")
+    for f in ("h", "rid", "pos", "lens"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        if x.shape != y.shape or not bool((x == y).all()):
+            raise RuntimeError(f"index on {what}: field {f} differs between "
+                               "the card and the CPU")
+
+
+def hifi_batch():
+    """A fixed HiFi batch: 0.4 % error reads of a 60 kb genome plus one read
+    of 20 kb, longer than CHUNK_LP, so that it is halo-chunked."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.simulate import (mutate_read,
+                                                  simulate_genome,
+                                                  simulate_reads)
+    g = simulate_genome(60_000, seed=23)
+    sim = simulate_reads(g, coverage=10, mean_len=6000, error_rate=0.004,
+                         seed=24, min_len=2000)
+    rng = np.random.default_rng(25)
+    reads = list(sim.reads) + [mutate_read(g[10_000:30_000], 0.004, rng)]
+    return SeqStore.from_codes(reads)
+
+
 def phase_overlaps(dev):
-    """find_overlaps on one fixed batch of reads: the card's records against
-    the CPU's, every field (the vote scoring takes a float32 log2)."""
+    """find_overlaps on fixed batches of reads: the card's records against
+    the CPU's, every field (the vote scoring takes a float32 log2).  The
+    ONT batch at k = 17, w = 10; the HiFi batch at k = 51, w = 51, whose
+    index arrays are held card against CPU too."""
     import numpy as np
     from nextdenovo_tpu_torch.io.seqstore import SeqStore
     from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
-    from nextdenovo_tpu_torch.overlap.engine import build_index, find_overlaps
+    from nextdenovo_tpu_torch.overlap.engine import (CHUNK_LP, build_index,
+                                                     find_overlaps)
     g = simulate_genome(60_000, seed=21)
     sim = simulate_reads(g, coverage=20, mean_len=6000, error_rate=0.10,
                          seed=22)
@@ -900,22 +965,32 @@ def phase_overlaps(dev):
             top_k=4, query_mask=np.ones(len(store), bool), device=d)
         log(f"[overlaps] {d}: {len(blocks[str(d)])} records from "
             f"{len(store)} reads in {time.time() - t0:.1f}s")
-    a, b = blocks[str(dev)], blocks["cpu"]
-    if len(a) == 0:
-        raise RuntimeError("find_overlaps gave no records on the fixed batch")
-    if sorted(a.data) != sorted(b.data) or len(a) != len(b):
-        raise RuntimeError(f"find_overlaps: {len(a)} records on the card, "
-                           f"{len(b)} on the CPU")
-    for k in sorted(a.data):
-        x, y = np.asarray(a.data[k]), np.asarray(b.data[k])
-        if not np.array_equal(x, y):
-            i = int(np.nonzero(x != y)[0][0])
-            raise RuntimeError(
-                f"find_overlaps differs between the card and the CPU: field "
-                f"{k} record {i}: {x[i]} != {y[i]} (genome seed 21, reads "
-                f"seed 22)")
+    a = blocks[str(dev)]
+    _same_records(a, blocks["cpu"], "the ONT batch (genome seed 21, reads "
+                  "seed 22)")
     log(f"[overlaps] card == cpu: {len(a)} records, fields "
         f"{sorted(a.data)} identical")
+
+    store = hifi_batch()
+    rids = np.arange(len(store))
+    assert int(np.max(store.length)) > CHUNK_LP
+    out = {}
+    for d in (dev, "cpu"):
+        t0 = time.time()
+        out[str(d), "index"] = build_index(store, rids, k=51, w=51,
+                                           max_occ=64, device=d)
+        out[str(d)] = find_overlaps(
+            store, rids, out[str(d), "index"], k=51, w=51, max_occ=16,
+            min_cnt=4, min_span=500, top_k=4,
+            query_mask=np.ones(len(store), bool), device=d)
+        log(f"[overlaps] HiFi k=51 w=51 {d}: index {out[str(d), 'index'].n} "
+            f"entries, {len(out[str(d)])} records from {len(store)} reads (longest "
+            f"{int(np.max(store.length))}) in {time.time() - t0:.1f}s")
+    _same_index(out[str(dev), "index"], out["cpu", "index"], "the HiFi batch")
+    a = out[str(dev)]
+    _same_records(a, out["cpu"], "the HiFi batch at k = 51")
+    log(f"[overlaps] HiFi card == cpu: the index's arrays and {len(a)} "
+        f"records identical")
 
 
 def phase_fast_path(dev):
@@ -1041,13 +1116,9 @@ def phase_main_path(dev, genome_size, workdir):
     import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.__main__ import main as cli_main
-    from nextdenovo_tpu_torch.io.fastx import read_fastx
-    from nextdenovo_tpu_torch.io.seqstore import SeqStore, stat_n50
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
     from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
-    from nextdenovo_tpu_torch.ops.align import band_align
     from nextdenovo_tpu_torch.utils import get_tracer
-    from nextdenovo_tpu_torch.utils.asm_metrics import (kmer_identity,
-                                                         misassembly_count)
 
     t0 = time.time()
     genome = simulate_genome(genome_size, seed=1)
@@ -1099,21 +1170,8 @@ def phase_main_path(dev, genome_size, workdir):
         f"{dist([c for _, c in batches])}")
 
     wd = os.path.join(workdir, "wd")
-    stages = ("00.db", "01.raw_align", "02.sort_align", "03.seed_cns",
-              "04.cns_align", "05.ctg_graph", "06.ctg_cns")
-    for st in stages:
-        if not os.path.exists(os.path.join(wd, st, ".done")):
-            raise RuntimeError(f"stage {st} left no .done marker")
-    # launch counts at each stage's end (run.py records them as spans) and
-    # each stage's wall: the time between two markers' spans
-    marks = {s_.name[len("launches/"):]: s_ for s_ in tracer.spans
-             if s_.name.startswith("launches/")}
+    marks = _stage_report("main_path", tracer, t0, wd)
     at = lambda st, k: int(marks[st].attrs[k])
-    prev_t = t0
-    for st in stages:
-        log(f"[main_path] stage {st}: wall {marks[st].t0 - prev_t:.1f}s, "
-            f"launches so far {json.dumps(marks[st].attrs)}")
-        prev_t = marks[st].t0
     by_name = {}
     for s_ in tracer.spans:
         by_name.setdefault(s_.name, []).append(s_)
@@ -1167,7 +1225,51 @@ def phase_main_path(dev, genome_size, workdir):
     if retry_pairs and (launches["wave_fwd"] == 0 or launches["wave_tb"] == 0):
         raise RuntimeError("retry tier ran without launching the wave kernels")
 
-    # identity of corrected reads against their true genome interval
+    _check_identity("main_path", dev, wd, cns, sim, genome, 0.98)
+
+    # the assembly against the simulated genome
+    longest, total, kid = _contig_report("main_path", wd, genome)
+    if longest <= 0.6 * len(genome):
+        raise RuntimeError(f"longest contig {longest} <= 0.6 x genome")
+    if total >= 1.6 * len(genome):
+        raise RuntimeError(f"contig total {total} >= 1.6 x genome")
+    if kid < 0.9:
+        raise RuntimeError(f"contig 31-mer identity {kid:.4f} below 0.9")
+    return launches, dict(wall_s=wall, peak_bytes=peak,
+                          retry_pairs=max(retry_pairs, default=0))
+
+
+STAGES = ("00.db", "01.raw_align", "02.sort_align", "03.seed_cns",
+          "04.cns_align", "05.ctg_graph", "06.ctg_cns")
+
+
+def _stage_report(tag, tracer, t0, wd):
+    """Every stage of task = all left its .done marker; print each stage's
+    wall (the time between two markers' spans) and the launch counts at its
+    end (run.py records them as spans).  Returns the marker spans."""
+    for st in STAGES:
+        if not os.path.exists(os.path.join(wd, st, ".done")):
+            raise RuntimeError(f"stage {st} left no .done marker")
+    marks = {s_.name[len("launches/"):]: s_ for s_ in tracer.spans
+             if s_.name.startswith("launches/")}
+    prev_t = t0
+    for st in STAGES:
+        log(f"[{tag}] stage {st}: wall {marks[st].t0 - prev_t:.1f}s, "
+            f"launches so far {json.dumps(marks[st].attrs)}")
+        prev_t = marks[st].t0
+    return marks
+
+
+def _check_identity(tag, dev, wd, cns, sim, genome, limit, window=None):
+    """Identity of up to 200 corrected reads (and 50 raw ones) against their
+    true genome interval, aligned on the card; fails below `limit` or when
+    under 90 % of the corrected reads align.  window(c, g), when given, cuts
+    the interval g to the part that corrected read c covers (None: c counts
+    as not aligned).  Prints how much of its seed each corrected read kept.
+    Returns (mean identity, each read's kept share, each read's seed)."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.ops.align import band_align
     rng = np.random.default_rng(3)
     pick = rng.choice(len(cns), size=min(200, len(cns)), replace=False)
 
@@ -1175,29 +1277,49 @@ def phase_main_path(dev, genome_size, workdir):
         g = genome[int(sim.start[rid]) : int(sim.end[rid])]
         return (g[::-1] ^ 3) if int(sim.strand[rid]) else g
 
-    def identities(seqs, rids):
-        res = band_align([s.astype(np.int8) for s in seqs],
-                         [truth(r).astype(np.int8) for r in rids], device=dev)
-        out = []
-        for s, r in zip(seqs, res):
-            if r["ok"]:
-                out.append(1.0 - r["dist"] / max(1, len(s)))
-        return out
+    def identities(seqs, targets):
+        pairs = [(s, t) for s, t in zip(seqs, targets) if t is not None]
+        res = band_align([s.astype(np.int8) for s, _ in pairs],
+                         [np.ascontiguousarray(t).astype(np.int8)
+                          for _, t in pairs], device=dev)
+        return [1.0 - r["dist"] / max(1, len(s))
+                for (s, _), r in zip(pairs, res) if r["ok"]]
 
     # a corrected read is named by its seed's id in the stage-00 store,
     # whose reads carry the simulated reads' names r<index>
     reads = SeqStore.load(os.path.join(wd, "00.db", "reads"))
-    rids = [int(reads.names[int(cns.names[i])][1:]) for i in pick]
-    ide_c = identities([cns.get(int(i)) for i in pick], rids)
-    ide_r = identities([sim.reads[r] for r in rids[:50]], rids[:50])
-    mc, mr = float(np.mean(ide_c)), float(np.mean(ide_r))
-    log(f"[main_path] identity vs truth: corrected {mc:.4f} over "
-        f"{len(ide_c)}/{len(pick)} aligned reads; raw {mr:.4f} over "
-        f"{len(ide_r)} reads")
-    if len(ide_c) < 0.9 * len(pick) or mc < 0.98:
-        raise RuntimeError(f"corrected-read identity {mc:.4f} below 0.98")
+    seeds = np.array([int(cns.names[int(i)]) for i in pick])
+    rids = [int(reads.names[s][1:]) for s in seeds]
+    cs = [cns.get(int(i)) for i in pick]
+    kept = np.array([len(c) / int(reads.length[s]) for c, s in zip(cs, seeds)])
+    cut = window or (lambda c, g: g)
+    ide_c = identities(cs, [cut(c, truth(r)) for c, r in zip(cs, rids)])
+    ide_r = identities([sim.reads[r] for r in rids[:50]],
+                       [truth(r) for r in rids[:50]])
+    mc = float(np.mean(ide_c)) if ide_c else 0.0
+    mr = float(np.mean(ide_r))
+    w = int(np.argmin(kept))
+    log(f"[{tag}] identity vs truth{' they cover' if window else ''}: "
+        f"corrected {mc:.4f} over {len(ide_c)}/{len(pick)} aligned reads; "
+        f"raw {mr:.4f} over {len(ide_r)} reads; length kept of the seed: "
+        f"median {np.median(kept):.3f}, {int((kept < 0.9).sum())} of "
+        f"{len(kept)} below 0.9, least {kept[w]:.3f} (seed {seeds[w]}, "
+        f"{int(reads.length[seeds[w]])} -> {len(cs[w])} bases)")
+    if len(ide_c) < 0.9 * len(pick) or mc < limit:
+        raise RuntimeError(f"corrected-read identity {mc:.4f} over "
+                           f"{len(ide_c)}/{len(pick)} reads, below {limit}")
+    return mc, kept, seeds
 
-    # the assembly against the simulated genome
+
+def _contig_report(tag, wd, genome):
+    """Print the contigs of nd.asm.fasta against the simulated genome
+    (N50, total, longest, 31-mer identity before and after polishing,
+    misassemblies).  Returns (longest, total, 31-mer identity)."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.fastx import read_fastx
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore, stat_n50
+    from nextdenovo_tpu_torch.utils.asm_metrics import (kmer_identity,
+                                                         misassembly_count)
     contigs = [c for _, c in read_fastx(os.path.join(wd, "06.ctg_cns",
                                                      "nd.asm.fasta"))]
     if not contigs:
@@ -1210,18 +1332,135 @@ def phase_main_path(dev, genome_size, workdir):
     draft = SeqStore.load(os.path.join(wd, "05.ctg_graph", "draft"))
     kid_draft = kmer_identity([draft.get(i) for i in range(len(draft))],
                               [genome])
-    log(f"[main_path] contigs {len(contigs)}, N50 {st_c['N50'][0]}, total "
+    log(f"[{tag}] contigs {len(contigs)}, N50 {st_c['N50'][0]}, total "
         f"{total}, longest {longest} of a {len(genome)} bp genome; 31-mer "
         f"identity {kid:.4f} (draft before polish {kid_draft:.4f}); "
         f"misassemblies {json.dumps(mis)}")
-    if longest <= 0.6 * len(genome):
-        raise RuntimeError(f"longest contig {longest} <= 0.6 x genome")
-    if total >= 1.6 * len(genome):
-        raise RuntimeError(f"contig total {total} >= 1.6 x genome")
-    if kid < 0.9:
-        raise RuntimeError(f"contig 31-mer identity {kid:.4f} below 0.9")
-    return launches, dict(wall_s=wall, peak_bytes=peak,
-                          retry_pairs=max(retry_pairs, default=0))
+    return longest, total, kid
+
+
+def phase_hifi_path(dev, genome_size, workdir):
+    """read_type = hifi, task = all through the CLI entry: the k = 51,
+    w = 51 long-kmer raw sketch (reads over CHUNK_LP halo-chunked), the
+    kmer/phasing consensus, then stages 04-06 as for ONT.  Launch counters
+    at 0 and peak memory reset just before.  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.__main__ import main as cli_main
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
+    from nextdenovo_tpu_torch.utils import get_tracer
+
+    t0 = time.time()
+    genome = simulate_genome(genome_size, seed=3)
+    sim = simulate_reads(genome, coverage=HIFI_COVERAGE,
+                         mean_len=HIFI_MEAN_LEN, error_rate=HIFI_ERROR_RATE,
+                         seed=4, min_len=4000)
+    cfg_p = _write_run(
+        workdir, sim.reads,
+        "[General]\ntask = all\ninput_type = raw\n"
+        "read_type = hifi\ninput_fofn = input.fofn\nworkdir = wd\n"
+        f"[correct_option]\ngenome_size = {genome_size}\n")
+    lens = np.array([len(r) for r in sim.reads])
+    log(f"[hifi_path] simulated {len(sim.reads)} reads, {int(lens.sum())} "
+        f"bases ({int((lens > CHUNK_LP).sum())} longer than {CHUNK_LP}) in "
+        f"{time.time() - t0:.1f}s")
+
+    tracer = get_tracer()
+    tracer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.time()
+    rc = cli_main(["run", cfg_p])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"CLI entry returned {rc}")
+    log(f"[hifi_path] task=all read_type=hifi wall {wall:.1f}s, peak device "
+        f"memory {peak / 2**20:.0f} MiB, launches {json.dumps(launches)}")
+    log("[hifi_path] spans:\n" + tracer.summary())
+    wd = os.path.join(workdir, "wd")
+    marks = _stage_report("hifi_path", tracer, t0, wd)
+    by_name = {}
+    for s_ in tracer.spans:
+        by_name.setdefault(s_.name, []).append(s_)
+    bi = by_name["raw_align/build_index"][0]
+    kw = (int(bi.attrs["k"]), int(bi.attrs["w"]))
+    # spans of stage 01 only: the engine also runs in stages 04 and 06
+    t01 = marks["01.raw_align"].t0
+    in01 = lambda n: sum(s_.wall for s_ in by_name.get(n, []) if s_.t0 < t01)
+    log(f"[hifi_path] stage 01 at k={kw[0]} w={kw[1]}: raw_align "
+        f"{in01('raw_align'):.1f}s, of which build_index (sketch of every "
+        f"read, host sort) {bi.wall:.1f}s, engine/host_fill (the queries' "
+        f"sketch) {in01('engine/host_fill'):.1f}s, engine/match "
+        f"{in01('engine/match'):.1f}s")
+    if kw != (51, 51):
+        raise RuntimeError(f"the HiFi run sketched at k, w = {kw}, not 51, 51")
+    if launches["myers_fwd"] == 0:
+        raise RuntimeError("kernel myers_fwd was not launched on the HiFi path")
+    pairs = lambda n: sum(int(s_.attrs["pairs"]) for s_ in by_name.get(n, []))
+    ext_pairs, _ = _extender_work(tracer)
+    log(f"[hifi_path] Myers tier {pairs('kernel/myers_tier')} pairs; retry "
+        f"tier {pairs('kernel/band_retry')} pairs in "
+        f"{len(by_name.get('kernel/band_retry', []))} calls; stage 04 handed "
+        f"the extender {ext_pairs} tail pairs")
+    meta = json.load(open(os.path.join(wd, "00.db", "meta.json")))
+    n_black = len(json.load(open(os.path.join(wd, "02.sort_align",
+                                              "bl.json"))))
+    cns = SeqStore.load(os.path.join(wd, "03.seed_cns", "cns"))
+    log(f"[hifi_path] seeds {int(np.sum(meta['seed_mask']))} (cutoff "
+        f"{meta['seed_cutoff']}), blacklisted by sort_align {n_black}, "
+        f"corrected {len(cns)}")
+    # a corrected HiFi read can be much shorter than its seed (the native
+    # HiFi consensus keeps part of it: PERF.md, tests/hifi_witness.py), so
+    # each read is held against the part of its truth it covers, and what
+    # the reads kept and the contigs' lengths are held as regression limits
+    # under the shares measured on the card (median kept 0.660, longest
+    # contig 0.418 x genome)
+    _, kept, _ = _check_identity("hifi_path", dev, wd, cns, sim, genome, 0.98,
+                                 window=_anchor)
+    if np.median(kept) < 0.5:
+        raise RuntimeError(f"corrected reads kept a median "
+                           f"{np.median(kept):.3f} of their seed, below 0.5")
+    longest, total, kid = _contig_report("hifi_path", wd, genome)
+    log(f"[hifi_path] longest contig {longest / len(genome):.3f} x genome")
+    if longest < 0.3 * len(genome):
+        raise RuntimeError(f"longest contig {longest} below 0.3 x genome")
+    if kid <= 0.95:
+        raise RuntimeError(f"contig 31-mer identity {kid:.4f} not above 0.95")
+    if not 0.5 * len(genome) < total < 1.6 * len(genome):
+        raise RuntimeError(f"contig total {total} outside 0.5-1.6 x genome")
+    return launches
+
+
+def _anchor(c, g, k=25, tries=20):
+    """The window of g that corrected read c covers: c's first and last
+    k-mers found exactly in g (each tried at up to `tries` offsets 50 bases
+    apart, so that an error in one k-mer does not lose the read).  None
+    when no k-mer of either end is found."""
+    import numpy as np
+    gb = g.astype(np.uint8).tobytes()
+    cb = c.astype(np.uint8).tobytes()
+    a = b = None
+    for o in range(0, min(tries * 50, len(cb) - k), 50):
+        x = gb.find(cb[o : o + k])
+        if x >= o:
+            a = x - o
+            break
+    for o in range(0, min(tries * 50, len(cb) - k), 50):
+        e = len(cb) - o
+        x = gb.rfind(cb[e - k : e])
+        if x >= 0 and x + k + o <= len(gb):
+            b = x + k + o
+            break
+    if a is None or b is None or b <= a:
+        return None
+    return g[a:b]
 
 
 def myers_sweep(dev, rng, qs, ts, sizes=(640, 1280, 2560, 5120), chunk=640):
@@ -1512,6 +1751,11 @@ def main() -> int:
         launches, facts = phase_main_path(dev, GENOME_SIZE, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_hifi_")
+    try:
+        hifi_launches = phase_hifi_path(dev, HIFI_GENOME_SIZE, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     for k, path in KERNEL_PATH.items():
         launches[k] = (fast_launches if path == FAST_PATH else ext_launches)[k]
     with watchdog(420, "the timing phase"):
@@ -1527,6 +1771,7 @@ def main() -> int:
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
             exact=t["exact"], kernel_ms=t["ms"], shape=t["shape"],
             path=KERNEL_PATH.get(name, "task = all"),
+            launches_hifi=hifi_launches[name],
             **({"host_native_ms": t["host_native_ms"]}
                if "host_native_ms" in t else {})))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")

@@ -1,17 +1,20 @@
 """Minimizer sketching as batched tensor ops (PyTorch).
 
-Counterpart of nextdenovo_tpu/ops/sketch.py for k <= 31: k-mer assembly
-uses log2(k) shift-or doubling over (hi, lo) 32-bit lanes, window minima
-use log2(w) min-shift doubling, and the hash is a murmur-style finalizer.
-Selection rule: position i is a minimizer iff it is the leftmost-tie argmin
-of some w-window, matching minimap2's density guarantee.
+Counterpart of nextdenovo_tpu/ops/sketch.py: k-mer assembly uses log2(k)
+shift-or doubling over 32-bit lanes, window minima use log2(w) min-shift
+doubling, and the hash is a murmur-style finalizer.  Selection rule:
+position i is a minimizer iff it is the leftmost-tie argmin of some
+w-window, matching minimap2's density guarantee.
+
+k <= 31 packs into two (hi, lo) lanes (`sketch`); k <= 128 uses the generic
+multi-lane path (`sketch_wide`, the HiFi -k51 -w51 raw sketch).
+
+Not ported: homopolymer compression (the reference's hpc_compress and
+sketch_wide(hpc=True)), which no pipeline stage of the reference calls.
 
 32-bit unsigned values are held in int64 tensors in [0, 2^32): wrap-around
 multiply, logical shifts and unsigned comparison then follow from ordinary
 int64 arithmetic with a mask.
-
-Not ported yet: the multi-lane k <= 128 path and homopolymer compression
-(sketch_wide, hpc_compress — the HiFi presets).
 """
 from __future__ import annotations
 
@@ -169,6 +172,16 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     h = hash_kmer(chi, clo)
     h = torch.where(valid_k & ~equal, h, UMAX)
 
+    return _select(h, strand, pos, valid_k, lengths, k, w, cap, own_lo,
+                   own_hi)
+
+
+def _select(h, strand, pos, valid_k, lengths, k: int, w: int, cap: int,
+            own_lo, own_hi) -> Minimizers:
+    """Window selection and compaction shared by sketch and sketch_wide.
+    h: (B, L) hashes with UMAX where no k-mer counts."""
+    dev = h.device
+    B, L = h.shape
     _, warg = sliding_min_pair(h, pos, w)
     # i is selected iff some window starting in [i-w+1, i] has argmin == i
     sel = torch.zeros((B, L), dtype=torch.bool, device=dev)
@@ -199,3 +212,116 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
         n=int(hits.shape[0]),
         n_all=n_all,
     )
+
+
+# --------------------------------------------------------------------------
+# generic multi-lane packing for k <= 128 (32-bit lanes, MSB-first)
+
+def _lanes_shl(lanes, s: int):
+    """Shift a multi-lane value left by s bits (within 32*len(lanes))."""
+    if s == 0:
+        return list(lanes)
+    n = len(lanes)
+    word, bit = s // 32, s % 32
+    zero = torch.zeros_like(lanes[0])
+    out = []
+    for i in range(n):
+        j = i + word
+        v = lanes[j] if j < n else zero
+        if bit:
+            lo = (lanes[j + 1] >> (32 - bit)) if j + 1 < n else zero
+            v = ((v << bit) & _M32) | lo
+        out.append(v)
+    return out
+
+
+def _lanes_or(a, b):
+    return [x | y for x, y in zip(a, b)]
+
+
+def kmer_pack_wide(codes: torch.Tensor, k: int, n_lanes: int = 4):
+    """codes (..., L) -> (fwd_lanes, rev_lanes): position i holds the fwd
+    k-mer codes[i..i+k) and its revcomp as n_lanes 32-bit lanes (int64
+    tensors), MSB-first.  Same shift-or doubling as kmer_pack, generalized
+    to any lane count."""
+    assert 1 <= k <= 16 * n_lanes - 1
+    c = codes.to(torch.int64) & 3
+    rc = c ^ 3
+    zero = torch.zeros_like(c)
+
+    def mk(v):
+        return [zero] * (n_lanes - 1) + [v]
+
+    fwd_blocks = {1: mk(c)}
+    rev_blocks = {1: mk(rc)}
+    s = 1
+    while s * 2 <= k:
+        a = fwd_blocks[s]
+        b = [_shift_right(x, s) for x in a]
+        fwd_blocks[2 * s] = _lanes_or(_lanes_shl(a, 2 * s), b)
+        ra = rev_blocks[s]
+        rb = [_shift_right(x, s) for x in ra]
+        # rc: second half occupies the HIGH bits
+        rev_blocks[2 * s] = _lanes_or(_lanes_shl(rb, 2 * s), ra)
+        s *= 2
+    rem, off = k, 0
+    fl = rl = None
+    for s in sorted(fwd_blocks, reverse=True):
+        if s > rem:
+            continue
+        b = [_shift_right(x, off) for x in fwd_blocks[s]]
+        rb = [_shift_right(x, off) for x in rev_blocks[s]]
+        if fl is None:
+            fl, rl = b, rb
+        else:
+            fl = _lanes_or(_lanes_shl(fl, 2 * s), b)
+            # rc: later (higher-index) block goes to HIGH bits
+            rl = _lanes_or(_lanes_shl(rb, 2 * off), rl)
+        off += s
+        rem -= s
+    return fl, rl
+
+
+def _lanes_less(a, b):
+    """Lexicographic a < b over MSB-first 32-bit lanes."""
+    lt = a[-1] < b[-1]
+    for i in range(len(a) - 2, -1, -1):
+        lt = (a[i] < b[i]) | ((a[i] == b[i]) & lt)
+    return lt
+
+
+def _lanes_eq(a, b):
+    eq = a[0] == b[0]
+    for i in range(1, len(a)):
+        eq = eq & (a[i] == b[i])
+    return eq
+
+
+def hash_lanes(lanes):
+    h = 0x9e3779b9
+    for x in lanes:
+        h = _mix32(x ^ h)
+    return h
+
+
+def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                cap: int, own_lo=None, own_hi=None) -> Minimizers:
+    """Long-k (k <= 128) minimizer sketch.  own_lo/own_hi (optional,
+    (B,)): emit only minimizers whose position falls in [own_lo, own_hi) —
+    the halo-chunking hook (see sketch())."""
+    dev = codes.device
+    B, L = codes.shape
+    lengths = lengths.to(torch.int64)
+    # minimal lane count: k // 16 + 1 covers the 16 * n - 1 packing bound;
+    # for k <= 31 (2 lanes) hashes match sketch() exactly
+    n_lanes = max(2, k // 16 + 1)
+    fl, rl = kmer_pack_wide(codes, k, n_lanes=n_lanes)
+    pos = torch.arange(L, device=dev, dtype=torch.int64)[None, :].expand(B, L)
+    valid_k = pos + k <= lengths[:, None]
+    fwd_less = _lanes_less(fl, rl)
+    equal = _lanes_eq(fl, rl)
+    strand = torch.where(fwd_less, 0, 1)
+    h = hash_lanes([torch.where(fwd_less, f, r) for f, r in zip(fl, rl)])
+    h = torch.where(valid_k & ~equal, h, UMAX)
+    return _select(h, strand, pos, valid_k, lengths, k, w, cap, own_lo,
+                   own_hi)

@@ -29,7 +29,7 @@ from ..device import resolve_device
 from ..io.seqstore import SeqStore
 from ..ops.segment import (segment_argmax, segment_max, segment_min,
                            segment_starts, segment_sum)
-from ..ops.sketch import sketch
+from ..ops.sketch import sketch, sketch_wide
 from .records import OvlBlock
 
 I32MAX = 2**31 - 1
@@ -128,15 +128,12 @@ def _chunk_rows(rids, lens, k: int, w: int):
 
 
 def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device):
-    """Sketch a batch of chunk rows as one (len(rows), L) launch.  Returned
-    positions are BUFFER-local; callers add each row's g0."""
-    if k > 31:
-        raise NotImplementedError(
-            "not ported yet: long-kmer / homopolymer-compressed sketching "
-            "(sketch_wide), the HiFi presets")
+    """Sketch a batch of chunk rows as one (len(rows), L) launch.  k > 31
+    routes to the long-kmer sketcher (the HiFi -k51 -w51 path).
+    Returned positions are BUFFER-local; callers add each row's g0."""
     L = max(max(r[4] for r in rows), 1)
     # int8 keeps the host->device copy 4x smaller (base codes are 0..4);
-    # the sketcher masks to 2 bits on device
+    # the sketchers mask to 2 bits on device
     codes = np.zeros((len(rows), L), np.int8)
     blens = np.zeros(len(rows), np.int32)
     olo = np.zeros(len(rows), np.int32)
@@ -147,6 +144,9 @@ def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device):
         blens[i] = len(c)
         olo[i], ohi[i] = lo, hi
     to = lambda a: torch.from_numpy(a).to(device)
+    if k > 31:
+        return sketch_wide(to(codes), to(blens), k=k, w=w, cap=cap,
+                           own_lo=to(olo), own_hi=to(ohi))
     return sketch(to(codes), to(blens), k=k, w=w, cap=cap,
                   own_lo=to(olo), own_hi=to(ohi))
 

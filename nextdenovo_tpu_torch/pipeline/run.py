@@ -15,8 +15,8 @@ skips 01-03):
   05.ctg_graph  string graph -> draft contigs (host)
   06.ctg_cns    reads mapped back to the contigs + window re-consensus
 
-HiFi reads, multi-device stages (use_mesh) and multi-host runs are not
-ported yet; a configuration that needs them is refused when it is read.
+Multi-device stages (use_mesh) and multi-host runs are not ported yet; a
+configuration that needs them is refused when it is read.
 
 Usage: python -m nextdenovo_tpu_torch run.cfg [--device cpu]
 """
@@ -49,10 +49,6 @@ log = logging.getLogger("nextdenovo_tpu_torch")
 def check_ported(cfg: Config) -> None:
     """Refuse, with a clear error, every configuration that needs a part
     of the system that is not ported yet."""
-    if cfg.read_type == "hifi":
-        raise NotImplementedError(
-            "not ported yet: read_type = hifi (long-kmer / homopolymer-"
-            "compressed sketching)")
     if int(getattr(cfg, "use_mesh", 0) or 0) > 0:
         raise NotImplementedError(
             "not ported yet: use_mesh > 0 (multi-device stages)")
@@ -329,7 +325,8 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
                         parts.append(OvlBlock.load(cp))
                         continue
                     if idx is None:
-                        with span("raw_align/build_index"):
+                        with span("raw_align/build_index", k=cfg.raw_k,
+                                  w=cfg.raw_w):
                             idx = build_index(store, rids, k=cfg.raw_k,
                                               w=cfg.raw_w, max_occ=64,
                                               device=dev)

@@ -59,12 +59,77 @@ def test_chunk_sup_pairs_equal(t):
         td._chunk_sup_pairs(sup[:900], 5, 800, t)
 
 
-def test_run_correction_store_identical(world):
+@pytest.fixture(scope="module")
+def jax_align_memo():
+    """The JAX package's band_align results by call: (hq, interpret and
+    every pair's bytes) -> results.  Its Myers tier takes ~100 s on the CPU
+    for this world; a repeated call with the same arguments (codes 1 and 2
+    make the same one) is served from here, code 3 (hq=True) runs its own."""
+    return {}
+
+
+@pytest.mark.parametrize("read_type", [1, 2, 3])
+def test_run_correction_store_identical(world, read_type, jax_align_memo,
+                                        monkeypatch):
+    """Read-type codes 1 (ONT), 2 (CLR) and 3 (HiFi: the kmer/phasing
+    consensus, and hq=True to the aligner)."""
+    from nextdenovo_tpu.ops import align as jalign
+    band_align = jalign.band_align
+
+    def memo_band_align(qs, ts_, interpret=False, hq=False):
+        key = (hq, interpret, tuple(q.tobytes() for q in qs),
+               tuple(t.tobytes() for t in ts_))
+        if key not in jax_align_memo:
+            jax_align_memo[key] = band_align(qs, ts_, interpret=interpret,
+                                             hq=hq)
+        return jax_align_memo[key]
+    monkeypatch.setattr(jalign, "band_align", memo_band_align)
     js, ts, blk, bl, lens = world
     jblk = JBlock({k: v for k, v in blk.data.items()})
-    ref = jd.run_correction(js, jblk, bl, read_type=1, interpret=True, **KW)
-    got = td.run_correction(ts, blk, bl, read_type=1, device="cpu", **KW)
+    ref = jd.run_correction(js, jblk, bl, read_type=read_type,
+                            interpret=True, **KW)
+    monkeypatch.undo()
+    got = td.run_correction(ts, blk, bl, read_type=read_type, device="cpu",
+                            **KW)
     assert len(got) > 0
     assert ref.names == got.names
     assert np.array_equal(ref.length, got.length)
     assert np.array_equal(ref.words, got.words)
+
+
+def _hifi_consensus_inputs(case):
+    """The inputs of tests/test_hifi_consensus.py: supports of a 3 kb truth
+    at 0.4 % error, or of two alleles of a 2 kb truth that differ at one
+    SNP, each aligned against the seed by the JAX package's native hq
+    aligner."""
+    from test_hifi_consensus import _mk_supports
+    from nextdenovo_tpu.io.simulate import mutate_read
+    if case == "truth":
+        rng = np.random.default_rng(21)
+        truth = rng.integers(0, 4, 3000).astype(np.uint8)
+        seed = mutate_read(truth, 0.004, rng)
+        return (seed,) + _mk_supports(truth, seed, 12, 0.004, rng, hq=True)
+    rng = np.random.default_rng(22)
+    truth = rng.integers(0, 4, 2000).astype(np.uint8)
+    alt = truth.copy()
+    alt[1000] = (alt[1000] + 2) % 4
+    seed = truth.copy()
+    a = _mk_supports(truth, seed, 8, 0.003, rng, hq=True)
+    b = _mk_supports(alt, seed, 4, 0.003, rng, hq=True)
+    return (seed,) + tuple(x + y for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("read_type", [2, 3])
+@pytest.mark.parametrize("case", ["truth", "het_site"])
+def test_correct_seed_read_types_equal(case, read_type):
+    """native.correct_seed with the CLR (2) and HiFi (3) codes gives the
+    same (length, identity, sequence) in both packages."""
+    from nextdenovo_tpu import native as jn
+    from nextdenovo_tpu_torch import native as tn
+    seed, sups, ts_, te_, ops = _hifi_consensus_inputs(case)
+    kw = dict(min_len_aln=100, max_cov_aln=60, min_cov=3,
+              max_lq_length=1000, read_type=read_type)
+    ref = jn.correct_seed(seed, sups, ts_, te_, ops, **kw)
+    got = tn.correct_seed(seed, sups, ts_, te_, ops, **kw)
+    assert got[0] > 0.9 * len(seed)
+    assert got == ref

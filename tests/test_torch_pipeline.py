@@ -104,15 +104,15 @@ def test_unported_configurations_raise(tmp_path, task, extra, what):
 
 
 def test_hifi_and_corrected_input_raise(tmp_path):
+    """read_type = hifi and corrected input are admitted; a multi-host run
+    still raises."""
     (tmp_path / "input.fofn").write_text("reads.fa\n")
-    cfg = tload(write_correct_cfg(tmp_path, "h", GLEN, "wd_h"))
-    cfg.read_type = "hifi"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        trun(cfg, device="cpu")
-    for task in ("all", "assemble"):
-        cfg.read_type, cfg.task = "hifi", task
-        with pytest.raises(NotImplementedError, match="hifi"):
-            trun(cfg, device="cpu")
+    cfg = tload(write_correct_cfg(tmp_path, "h", GLEN, "wd_h",
+                                  read_type="hifi"))
+    assert cfg.read_type == "hifi" and cfg.read_type_code == 3
+    for task in ("all", "correct", "assemble"):
+        cfg.task = task
+        assert trun_mod.check_ported(cfg) is None
     assert not os.path.exists(tmp_path / "wd_h")
     # corrected input is admitted (stages 01-03 are skipped)
     cfg.read_type, cfg.input_type, cfg.task = "ont", "corrected", "assemble"
@@ -122,6 +122,29 @@ def test_hifi_and_corrected_input_raise(tmp_path):
         n_hosts = 2
     with pytest.raises(NotImplementedError, match="multi-host"):
         trun(cfg, device="cpu", hosts=TwoHosts())
+
+
+@pytest.mark.parametrize("read_type", ["clr", "hifi", "ccs"])
+def test_load_config_derived_fields_equal(tmp_path, read_type):
+    """The same config file gives the same read-type code and the same
+    db_stat-time derivations (raw_k, raw_w, max_lq_length, seed_cutoff) in
+    both packages."""
+    (tmp_path / "input.fofn").write_text("reads.fa\n")
+    p = write_correct_cfg(tmp_path, read_type, GLEN, "wd",
+                          read_type=read_type)
+    text = open(p).read().replace("seed_cutoff = 1500\n", "")
+    open(p, "w").write(text)
+    lens = np.random.default_rng(3).integers(500, 9000, 400)
+    got = []
+    for cfg in (jload(p), tload(p)):
+        cfg.derive(int(lens.sum()), lens)
+        got.append((cfg.read_type, cfg.read_type_code, cfg.raw_k, cfg.raw_w,
+                    cfg.max_lq_length, cfg.seed_cutoff, cfg.sort_max_depth,
+                    cfg.min_len_seed))
+    assert got[0] == got[1]
+    code = {"clr": 2, "hifi": 3, "ccs": 3}[read_type]
+    assert got[1][1] == code and got[1][4] == 1000 and got[1][5] > 0
+    assert got[1][2:4] == ((51, 51) if code == 3 else (15, 5))
 
 
 def test_cli_routes(tmp_path):

@@ -34,13 +34,14 @@ def assert_same_results(ref, got):
         assert np.array_equal(np.asarray(x["ops"]), np.asarray(y["ops"])), i
 
 
-def write_correct_cfg(d, name, glen, workdir, task="correct", extra=""):
+def write_correct_cfg(d, name, glen, workdir, task="correct", extra="",
+                      read_type="ont"):
     p = d / f"run_{name}.cfg"
     p.write_text(f"""
 [General]
 task = {task}
 input_type = raw
-read_type = ont
+read_type = {read_type}
 input_fofn = ./input.fofn
 workdir = ./{workdir}
 {extra}
