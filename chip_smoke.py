@@ -47,6 +47,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              just before and read just after; checks the markers, the
              share of corrected seeds, the identity of corrected reads,
              and the contigs against the simulated genome
+  multihost_path
+             the main path's reads and config in a fresh workdir through
+             `python -m nextdenovo_tpu_torch launch run.cfg --hosts 2
+             --submit local`: two host processes on the one card share the
+             workdir (stages 01, 03, 04 and 06 split between them); checks
+             that both finish, that each wrote its cns/map/pieces parts and
+             launched myers_fwd in stage 03 (its trace.h<k>.jsonl), and that
+             cns.fasta and nd.asm.fasta are byte for byte main_path's
   hifi_path  read_type = hifi, task = all through the CLI entry on 0.4 %
              error reads (30x, 15 kb mean) of a 1 Mb genome, with the launch
              counters at 0 and the peak memory reset just before; checks
@@ -78,7 +86,8 @@ line of stdout is {"ok": true, "device": {...}}; the line before the card
 line holds {"kernels": [...]}: four kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run; `launches_hifi` holds each kernel's
-launches on the HiFi run.
+launches on the HiFi run, `launches_multihost` its launches in each host
+process of the two-host run.
 """
 from __future__ import annotations
 
@@ -1438,6 +1447,104 @@ def phase_hifi_path(dev, genome_size, workdir):
     return launches
 
 
+def _host_rows(wd, k):
+    """Host k's `launches/<stage>` rows from its trace.h<k>.jsonl (the
+    launch counts of its own process at each stage's end)."""
+    p = os.path.join(wd, f"trace.h{k}.jsonl")
+    if not os.path.exists(p):
+        raise RuntimeError(f"host {k} left no trace.h{k}.jsonl (it did not "
+                           "finish)")
+    rows = {}
+    for line in open(p):
+        r = json.loads(line)
+        if r["name"].startswith("launches/"):
+            rows[r["name"][len("launches/"):]] = r
+    missing = [st for st in STAGES if st not in rows]
+    if missing:
+        raise RuntimeError(f"host {k} recorded no launch row for {missing}")
+    return rows
+
+
+def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
+    """The main path's reads and config in a fresh workdir, run as
+    `python -m nextdenovo_tpu_torch launch run.cfg --hosts 2 --submit
+    local`: two host processes on the one card share the workdir.  Each
+    host process starts with its launch counters at 0; its trace.h<k>.jsonl
+    holds them at every stage's end.  Checks that both hosts finished,
+    wrote their parts, launched myers_fwd in stage 03, and that cns.fasta
+    and nd.asm.fasta are byte for byte the main path's.  Returns each
+    host's launches over the run."""
+    import signal
+    names = ("myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
+             "wave_fast_fwd", "wave_fast_tb")
+    cfg_p = os.path.join(workdir, "run_mh.cfg")
+    with open(cfg_p, "w") as fh:
+        fh.write("[General]\ntask = all\ninput_type = raw\n"
+                 "read_type = ont\ninput_fofn = input.fofn\nworkdir = wd_mh\n"
+                 f"[correct_option]\ngenome_size = {GENOME_SIZE}\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log_p = os.path.join(workdir, "launch.log")
+    t0 = time.time()
+    with open(log_p, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nextdenovo_tpu_torch", "launch", cfg_p,
+             "--hosts", str(n_hosts), "--submit", "local"],
+            cwd=workdir, env=env, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            # the launcher and the hosts share its process group
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall = time.time() - t0
+    tail = "".join(open(log_p).readlines()[-40:])
+    if rc != 0:
+        raise RuntimeError(f"launch --hosts {n_hosts} "
+                           + ("timed out" if rc is None else f"returned {rc}")
+                           + f" after {wall:.1f}s; its log ends:\n{tail}")
+    wd, wd_main = os.path.join(workdir, "wd_mh"), os.path.join(workdir, "wd")
+    for k in range(n_hosts):
+        for rel in (f"03.seed_cns/cns.h{k}.npz", f"06.ctg_cns/map.h{k}.npz",
+                    f"06.ctg_cns/pieces.h{k}.npz"):
+            if not os.path.exists(os.path.join(wd, rel)):
+                raise RuntimeError(f"host {k} wrote no {rel}")
+    for rel in ("03.seed_cns/cns.fasta", "06.ctg_cns/nd.asm.fasta"):
+        a = open(os.path.join(wd_main, rel), "rb").read()
+        if not a or a != open(os.path.join(wd, rel), "rb").read():
+            raise RuntimeError(f"{rel} of the {n_hosts}-host run differs "
+                               "from the main path's")
+    log(f"[multihost_path] launch --hosts {n_hosts} --submit local: wall "
+        f"{wall:.1f}s (both host processes, from the launcher's start); "
+        "cns.fasta and nd.asm.fasta byte-identical to main_path's")
+    per_host = []
+    for k in range(n_hosts):
+        rows = _host_rows(wd, k)
+        prev_t, prev = t0, dict.fromkeys(names, 0)
+        walls, in_stage = [], {}
+        for st in STAGES:
+            walls.append(f"{st} {rows[st]['t0'] - prev_t:.1f}")
+            in_stage[st] = {n: rows[st][n] - prev[n] for n in names
+                            if rows[st][n] - prev[n]}
+            prev_t, prev = rows[st]["t0"], rows[st]
+        log(f"[multihost_path] host {k} stage walls s (00.db from the "
+            f"launcher's start): {', '.join(walls)}")
+        log(f"[multihost_path] host {k} launches by stage: "
+            f"{json.dumps(in_stage)}")
+        if in_stage["03.seed_cns"].get("myers_fwd", 0) < 1:
+            raise RuntimeError(f"host {k} launched no myers_fwd in stage 03")
+        per_host.append({n: rows["06.ctg_cns"][n] for n in names})
+    log(f"[multihost_path] launches per host: {json.dumps(per_host)}")
+    return per_host
+
+
 def _anchor(c, g, k=25, tries=20):
     """The window of g that corrected read c covers: c's first and last
     k-mers found exactly in g (each tried at up to `tries` offsets 50 bases
@@ -1749,6 +1856,7 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         launches, facts = phase_main_path(dev, GENOME_SIZE, workdir)
+        mh_launches = phase_multihost_path(workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_hifi_")
@@ -1772,6 +1880,7 @@ def main() -> int:
             exact=t["exact"], kernel_ms=t["ms"], shape=t["shape"],
             path=KERNEL_PATH.get(name, "task = all"),
             launches_hifi=hifi_launches[name],
+            launches_multihost=[h[name] for h in mh_launches],
             **({"host_native_ms": t["host_native_ms"]}
                if "host_native_ms" in t else {})))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")

@@ -7,10 +7,13 @@ nothing from nextdenovo_tpu.  Entry points take an explicit `device`
 argument: None means the GPU (and raises without one); "cpu" runs the
 plain PyTorch versions of the hand-written CUDA kernels.
 
-Ported so far: task = all — read correction (stages 00.db, 01.raw_align,
-02.sort_align, 03.seed_cns) and assembly (04.cns_align, 05.ctg_graph,
-06.ctg_cns) — for ont/clr reads on one device, and every kernel of the JAX
-package (ops/myers.py, ops/align.py, ops/extend.py).
+Ported so far: task = all | correct | assemble — read correction (stages
+00.db, 01.raw_align, 02.sort_align, 03.seed_cns) and assembly (04.cns_align,
+05.ctg_graph, 06.ctg_cns) — for ont/clr/hifi reads, on one device or as
+several host processes sharing a workdir (parallel/launcher.py, the
+`launch` sub-command); the host sub-commands seq_stat, seq_bit, ovl_cvt and
+stat; and every kernel of the JAX package (ops/myers.py, ops/align.py,
+ops/extend.py).  Not ported: the multi-device stages (use_mesh > 1).
 """
 
 __version__ = "0.1.0"

@@ -15,8 +15,11 @@ skips 01-03):
   05.ctg_graph  string graph -> draft contigs (host)
   06.ctg_cns    reads mapped back to the contigs + window re-consensus
 
-Multi-device stages (use_mesh) and multi-host runs are not ported yet; a
-configuration that needs them is refused when it is read.
+Multi-host runs (hosts=parallel.launcher.HostContext; `python -m
+nextdenovo_tpu_torch launch`) shard stages 01, 03, 04 and 06 round-robin by
+host and run 00, 02 and 05 on host 0.  Multi-device stages (use_mesh > 1 on
+one host) are not ported yet; such a configuration is refused before any
+work.
 
 Usage: python -m nextdenovo_tpu_torch run.cfg [--device cpu]
 """
@@ -46,12 +49,14 @@ from .config import Config, load_config
 log = logging.getLogger("nextdenovo_tpu_torch")
 
 
-def check_ported(cfg: Config) -> None:
+def check_ported(cfg: Config, n_hosts: int = 1) -> None:
     """Refuse, with a clear error, every configuration that needs a part
-    of the system that is not ported yet."""
-    if int(getattr(cfg, "use_mesh", 0) or 0) > 0:
+    of the system that is not ported yet: the reference's mesh path, which
+    it takes for use_mesh > 1 on one host (use_mesh = 1, and any use_mesh
+    in a multi-host run, take the single-device path there as here)."""
+    if int(getattr(cfg, "use_mesh", 0) or 0) > 1 and n_hosts <= 1:
         raise NotImplementedError(
-            "not ported yet: use_mesh > 0 (multi-device stages)")
+            "not ported yet: use_mesh > 1 (multi-device stages)")
 
 
 def retry(name: str, fn, n: int = 3):
@@ -70,18 +75,6 @@ def retry(name: str, fn, n: int = 3):
                         name, attempt + 1, n, exc_info=True)
 
 
-class SingleHost:
-    """The one-process host context (multi-host sharding is not ported)."""
-    n_hosts = 1
-    host_id = 0
-
-    def is_main(self) -> bool:
-        return True
-
-    def shard(self, n: int) -> slice:
-        return slice(0, n)
-
-
 class Stage:
     def __init__(self, workdir: str, name: str):
         self.dir = os.path.join(workdir, name)
@@ -93,9 +86,19 @@ class Stage:
     def mark(self):
         with open(os.path.join(self.dir, ".done"), "w") as fh:
             fh.write(str(time.time()))
+        self._launches()
+
+    def wait(self, hs):
+        """A host that does not mark this stage waits for the host that
+        does (multi-host runs)."""
+        if not self.done():
+            hs.wait_done(self)
+        self._launches()
+
+    def _launches(self):
         # the kernels' launch counts so far in this process, as a
         # zero-length span: the difference between two stages' rows is
-        # what the later stage launched
+        # what this process launched in the later stage
         get_tracer().add("launches/" + os.path.basename(self.dir), 0.0,
                          **_build.LAUNCHES)
 
@@ -105,16 +108,23 @@ class Stage:
 
 def run_pipeline(cfg: Config, device=None, hosts=None):
     """Run the configured task.  device=None means the GPU and raises when
-    there is none; "cpu" runs the kernels' plain PyTorch versions."""
-    check_ported(cfg)
-    dev = resolve_device(device)
+    there is none; "cpu" runs the kernels' plain PyTorch versions.
+
+    hosts: optional parallel.launcher.HostContext — N identical host
+    processes share the workdir; raw_align, seed_cns, the cns_align
+    candidates and realignment, ctg_align and ctg_cns are round-robin
+    sharded by host, the sequential stages run on host 0 while the others
+    wait on the stage's `.done` marker."""
+    from ..parallel.launcher import SingleHost
+
     hs = hosts if hosts is not None else SingleHost()
-    if hs.n_hosts > 1:
-        raise NotImplementedError("not ported yet: multi-host runs")
+    multi = hs.n_hosts > 1
+    check_ported(cfg, hs.n_hosts)
+    dev = resolve_device(device)
     # rewrite=no: keep any previous run safe by moving the workdir to
     # .backup.vN before starting fresh (nextDenovo:577-585).  rewrite=yes
     # (default) reuses the workdir in place, which is also how resume works.
-    if not cfg.rewrite and os.path.isdir(cfg.workdir) \
+    if not cfg.rewrite and not multi and os.path.isdir(cfg.workdir) \
             and os.listdir(cfg.workdir):
         import shutil
         for i in range(100):
@@ -129,6 +139,8 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
 
     # ---- db_stat + db_split --------------------------------------------
     st = Stage(cfg.workdir, "00.db")
+    if multi and not hs.is_main():
+        st.wait(hs)
     if st.done():
         store = SeqStore.load(st.path("reads"))
         meta = json.load(open(st.path("meta.json")))
@@ -172,12 +184,14 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                                     rids)
 
     if cfg.task == "correct":
-        _dump_trace(cfg)
+        _dump_trace(cfg, hs)
         return dict(cns=cns_store)
 
     # ---- cns_align ------------------------------------------------------
     st = Stage(cfg.workdir, "04.cns_align")
-    if not st.done():
+    if not st.done() and multi:
+        _cns_align_multi(cfg, dev, hs, st, cns_store)
+    elif not st.done():
         cns_rids = np.arange(len(cns_store))
         with span("cns_align", reads=len(cns_store)):
             cns_ovl, bl, cinfo = retry(
@@ -198,9 +212,12 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
              len(cns_ovl), len(bl))
 
     # ---- ctg_graph ------------------------------------------------------
-    # graph building is host work (single-process in the reference too,
-    # ng/opt.c:10); draft contigs + per-node qv are persisted for resume.
+    # graph building is host-0 work (single-process in the reference too,
+    # ng/opt.c:10); draft contigs + per-node qv are persisted so every host
+    # can join the sharded polish stage below (and for resume).
     st = Stage(cfg.workdir, "05.ctg_graph")
+    if multi and not hs.is_main():
+        st.wait(hs)
     if st.done():
         draft = SeqStore.load(st.path("draft"))
         seqs = [draft.get(i) for i in range(len(draft))]
@@ -235,6 +252,9 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
         st.mark()
 
     # ---- ctg_align + ctg_cns (polish) -----------------------------------
+    # Sharded across hosts like the reference's ctg_align/ctg_cns job
+    # matrices (nextDenovo:368-467): the read->contig mapping is split by
+    # read, the window re-consensus by contig; host 0 gathers.
     st = Stage(cfg.workdir, "06.ctg_cns")
     if not st.done():
         if cfg.polish and seqs:
@@ -249,20 +269,30 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                                                  for r in seed_rids])
             else:
                 map_store = cns_store
-            map_p = st.path("map")
+            map_p = st.path(f"map.h{hs.host_id}" if multi else "map")
             if not os.path.exists(map_p + ".npz"):
                 with span("ctg_align", contigs=len(seqs)):
-                    part = map_polish_reads(seqs, map_store, device=dev)
+                    part = map_polish_reads(
+                        seqs, map_store, device=dev,
+                        shard=(hs.n_hosts, hs.host_id) if multi else None)
                 part.save(map_p)
-            ovl = OvlBlock.load(map_p)
-            pieces_p = st.path("pieces")
+            if multi:
+                hs.barrier("polish_map")
+                # stable qname sort == single-host emission order
+                ovl = _merge_by_qname(
+                    [st.path(f"map.h{k}") for k in range(hs.n_hosts)])
+            else:
+                ovl = OvlBlock.load(map_p)
+            pieces_p = st.path(f"pieces.h{hs.host_id}" if multi
+                               else "pieces")
             if not os.path.exists(pieces_p + ".npz"):
                 per_ctg = collect_per_ctg(ovl, len(seqs), map_store)
                 warn_fragmented(per_ctg, [len(s) for s in seqs],
                                 cfg.read_type_code)
                 keyed = []
                 with span("ctg_cns", contigs=len(seqs)):
-                    for ci in range(len(seqs)):
+                    for ci in hs.shard(len(seqs)):
+                        ci = int(ci)
                         qv = (node_qv[ci] if node_qv and ci < len(node_qv)
                               else [])
                         for j, p in enumerate(retry(
@@ -277,23 +307,33 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                 SeqStore.from_codes([p for _, p in keyed],
                                     names=[n for n, _ in keyed]
                                     ).save(pieces_p)
-            p = SeqStore.load(pieces_p)
-            all_pieces = [(n, p.get(i)) for i, n in enumerate(p.names)]
-            all_pieces.sort(key=lambda x: x[0])
-            seqs = [s for _, s in all_pieces if len(s) >= cfg.min_ctg_len]
-            seqs.sort(key=len, reverse=True)
-        from ..graph.output import stat_table
+            hs.barrier("polish_cns")
+            if hs.is_main():
+                all_pieces = []
+                for k in range(hs.n_hosts):
+                    p = SeqStore.load(st.path(f"pieces.h{k}") if multi
+                                      else pieces_p)
+                    all_pieces += [(n, p.get(i))
+                                   for i, n in enumerate(p.names)]
+                all_pieces.sort(key=lambda x: x[0])
+                seqs = [s for _, s in all_pieces
+                        if len(s) >= cfg.min_ctg_len]
+                seqs.sort(key=len, reverse=True)
+        if hs.is_main():
+            from ..graph.output import stat_table
 
-        names = [f"ctg{i:06d}" for i in range(len(seqs))]
-        write_fasta(st.path("nd.asm.fasta"), list(zip(names, seqs)))
-        stats = stat_n50(np.array([len(s) for s in seqs])) if seqs else {}
-        with open(st.path("nd.asm.stat"), "w") as fh:
-            fh.write(stat_table(seqs, cfg.genome_size or None))
-            fh.write("\n" + json.dumps(stats, indent=1, default=int))
-        st.mark()
+            names = [f"ctg{i:06d}" for i in range(len(seqs))]
+            write_fasta(st.path("nd.asm.fasta"), list(zip(names, seqs)))
+            stats = stat_n50(np.array([len(s) for s in seqs])) if seqs else {}
+            with open(st.path("nd.asm.stat"), "w") as fh:
+                fh.write(stat_table(seqs, cfg.genome_size or None))
+                fh.write("\n" + json.dumps(stats, indent=1, default=int))
+            st.mark()
+        else:
+            st.wait(hs)
     seqs = [s for _, s in read_fastx(st.path("nd.asm.fasta"))]
     stats = stat_n50(np.array([len(s) for s in seqs])) if seqs else {}
-    _dump_trace(cfg)
+    _dump_trace(cfg, hs)
     log.info("assembly: %d contigs, N50=%s, total=%s (%.1fs)",
              len(seqs), stats.get("N50", (0,))[0] if stats else 0,
              stats.get("total", 0), time.time() - t_start)
@@ -304,13 +344,16 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
 def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
                     rids) -> SeqStore:
     """Stages 01-03: raw overlaps of the seeds, the seed-keyed sort and
-    filter, and the correction itself.  Returns the corrected-read store."""
+    filter, and the correction itself.  Returns the corrected-read store.
+    With several hosts each overlaps and corrects its share of the seeds
+    into per-host parts, and host 0 merges them and sorts."""
+    multi = hs.n_hosts > 1
     # ---- raw_align ------------------------------------------------------
     st = Stage(cfg.workdir, "01.raw_align")
     if not st.done():
         seed_rids = rids[seed_mask]
         mine = seed_rids[hs.shard(len(seed_rids))]
-        part_p = st.path("raw.ovl")
+        part_p = st.path(f"raw.ovl.h{hs.host_id}" if multi else "raw.ovl")
         if not os.path.exists(part_p + ".npz"):
             # intra-stage resume: queries run in fixed chunks, each durably
             # checkpointed — a crash mid-overlap redoes only the unfinished
@@ -353,12 +396,26 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
                     os.unlink(part_p + f".c{j:04d}.npz")
                 except OSError:
                     pass
-        st.mark()
+        if multi:
+            hs.barrier("raw_align")
+            if hs.is_main():
+                # stable qname sort == single-host emission order
+                # (find_overlaps iterates query rids ascending)
+                _merge_by_qname([st.path(f"raw.ovl.h{k}")
+                                 for k in range(hs.n_hosts)]
+                                ).save(st.path("raw.ovl"))
+                st.mark()
+            else:
+                st.wait(hs)
+        else:
+            st.mark()
     raw_ovl = OvlBlock.load(st.path("raw.ovl"))
     log.info("raw_align: %d overlap records", len(raw_ovl))
 
     # ---- sort_align -----------------------------------------------------
     st = Stage(cfg.workdir, "02.sort_align")
+    if multi and not hs.is_main():
+        st.wait(hs)
     if st.done():
         sorted_blk = OvlBlock.load(st.path("sorted.ovl"))
         blacklist = {int(k): v for k, v in
@@ -378,12 +435,15 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
     # ---- seed_cns -------------------------------------------------------
     st = Stage(cfg.workdir, "03.seed_cns")
     if not st.done():
-        part_p = st.path("cns")
+        part_p = st.path(f"cns.h{hs.host_id}" if multi else "cns")
         if not os.path.exists(part_p + ".npz"):
             with span("seed_cns", records=len(sorted_blk)):
                 cns_part = retry("seed_cns", lambda: run_correction(
                     store, sorted_blk, blacklist,
-                    resume_path=st.path("cns.progress.jsonl"),
+                    resume_path=st.path(
+                        f"cns.progress.h{hs.host_id}.jsonl" if multi
+                        else "cns.progress.jsonl"),
+                    shard=(hs.n_hosts, hs.host_id) if multi else None,
                     read_type=cfg.read_type_code,
                     min_len_seed=cfg.min_len_seed,
                     min_error_corrected_ratio=cfg.min_error_corrected_ratio,
@@ -394,9 +454,18 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
                     max_cov_aln=cfg.max_cov_aln, min_cov=cfg.min_cov_base,
                     max_lq_length=cfg.max_lq_length), cfg.rerun)
             cns_part.save(part_p)
-        st.mark()
+        if multi:
+            hs.barrier("seed_cns")
+            if hs.is_main():
+                _merge_cns([st.path(f"cns.h{k}") for k in range(hs.n_hosts)]
+                           ).save(st.path("cns"))
+                st.mark()
+            else:
+                st.wait(hs)
+        else:
+            st.mark()
     cns_store = SeqStore.load(st.path("cns"))
-    if not os.path.exists(st.path("cns.fasta")):
+    if hs.is_main() and not os.path.exists(st.path("cns.fasta")):
         write_fasta(st.path("cns.fasta"),
                     [(n, cns_store.get(i))
                      for i, n in enumerate(cns_store.names)])
@@ -406,11 +475,79 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
     return cns_store
 
 
-def _dump_trace(cfg):
-    """Span dump: <workdir>/trace.jsonl plus the summary table in the log."""
+def _merge_by_qname(paths) -> OvlBlock:
+    """Per-host OvlBlock parts in one block, stably sorted by qname: each
+    query belongs to one host, so this is the single-host emission order."""
+    merged = OvlBlock.concat_all([OvlBlock.load(p) for p in paths])
+    return merged.take(np.argsort(np.asarray(merged.qname), kind="stable"))
+
+
+def _merge_cns(paths) -> SeqStore:
+    """Per-host corrected-read parts in one store, in the single-host order
+    of the (seed, piece) names ("123", "123_2")."""
+    seqs, names = [], []
+    for p in paths:
+        part = SeqStore.load(p)
+        seqs.extend(part.get(i) for i in range(len(part)))
+        names.extend(part.names)
+
+    def key(n):
+        a, _, b = n.partition("_")
+        return (int(a), int(b) if b else 0)
+
+    order = sorted(range(len(names)), key=lambda i: key(names[i]))
+    return SeqStore.from_codes([seqs[i] for i in order],
+                               names=[names[i] for i in order])
+
+
+def _cns_align_multi(cfg: Config, dev, hs, st: Stage,
+                     cns_store: SeqStore) -> None:
+    """Stage 04 on several hosts: each runs the candidates, realignment and
+    end extension of its share of the corrected reads (the device-heavy
+    part); host 0 merges the parts and runs the global per-read filter."""
+    from ..overlap.cns import (bl_info_for_graph, extend_overlap_ends,
+                               filter_cns_overlaps, realign_overlaps)
+    cns_rids = np.arange(len(cns_store))
+    mine = cns_rids[hs.shard(len(cns_rids))]
+    part_p = st.path(f"cns.realn.h{hs.host_id}")
+    if not os.path.exists(part_p + ".npz"):
+        # the same calls as cns_overlap_stage, on this host's queries
+        with span("cns_align", reads=len(cns_store), queries=len(mine)):
+            cidx = build_index(cns_store, cns_rids, k=cfg.cns_k, w=cfg.cns_w,
+                               max_occ=64, device=dev)
+            cand = find_overlaps(cns_store, mine, cidx, k=cfg.cns_k,
+                                 w=cfg.cns_w, max_occ=16, min_cnt=3,
+                                 min_span=cfg.cns_min_span,
+                                 query_mask=np.ones(len(cns_store), bool),
+                                 device=dev)
+            cidx = None          # release the index's device memory
+            part = realign_overlaps(cns_store, cand, device=dev)
+            part = extend_overlap_ends(cns_store, part, device=dev)
+        part.save(part_p)
+    hs.barrier("cns_align")
+    if not hs.is_main():
+        st.wait(hs)
+        return
+    merged = _merge_by_qname([st.path(f"cns.realn.h{k}")
+                              for k in range(hs.n_hosts)])
+    kept, info = filter_cns_overlaps(merged, np.asarray(cns_store.length),
+                                     maxhan1=cfg.maxhan1, maxhan2=cfg.maxhan2)
+    kept.save(st.path("cns.filt.dovt.ovl"))
+    json.dump(bl_info_for_graph(info), open(st.path("cnsbl.json"), "w"))
+    np.savez(st.path("cnsinfo.npz"), st=info.st, touched=info.touched,
+             alns=info.alns, lens=info.lens)
+    st.mark()
+
+
+def _dump_trace(cfg, hs):
+    """Span dump: <workdir>/trace.jsonl (trace.h<k>.jsonl per host of a
+    multi-host run: each host holds its own tracer) plus the summary table
+    in the log."""
     tracer = get_tracer()
     if tracer.enabled:
-        tracer.dump_jsonl(os.path.join(cfg.workdir, "trace.jsonl"))
+        name = (f"trace.h{hs.host_id}.jsonl" if hs.n_hosts > 1
+                else "trace.jsonl")
+        tracer.dump_jsonl(os.path.join(cfg.workdir, name))
         log.info("profile:\n%s", tracer.summary())
 
 

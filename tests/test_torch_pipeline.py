@@ -104,8 +104,8 @@ def test_unported_configurations_raise(tmp_path, task, extra, what):
 
 
 def test_hifi_and_corrected_input_raise(tmp_path):
-    """read_type = hifi and corrected input are admitted; a multi-host run
-    still raises."""
+    """read_type = hifi, corrected input and multi-host runs are admitted:
+    a second host gets past the check and waits for host 0's stage 00."""
     (tmp_path / "input.fofn").write_text("reads.fa\n")
     cfg = tload(write_correct_cfg(tmp_path, "h", GLEN, "wd_h",
                                   read_type="hifi"))
@@ -117,11 +117,28 @@ def test_hifi_and_corrected_input_raise(tmp_path):
     # corrected input is admitted (stages 01-03 are skipped)
     cfg.read_type, cfg.input_type, cfg.task = "ont", "corrected", "assemble"
     assert trun_mod.check_ported(cfg) is None
+    # a multi-host run is admitted
+    assert trun_mod.check_ported(cfg, n_hosts=2) is None
+    from nextdenovo_tpu_torch.parallel.launcher import HostContext
+    hs = HostContext(2, 1, cfg.workdir, poll_s=0.01, timeout_s=0.05)
+    with pytest.raises(TimeoutError, match="host 1: timed out on stage 00.db"):
+        trun(cfg, device="cpu", hosts=hs)
+    assert os.path.isdir(tmp_path / "wd_h" / ".sync")
+    assert not os.path.exists(tmp_path / "wd_h" / "00.db" / "reads.npz")
 
-    class TwoHosts(trun_mod.SingleHost):
-        n_hosts = 2
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        trun(cfg, device="cpu", hosts=TwoHosts())
+
+@pytest.mark.parametrize("use_mesh,n_hosts", [(1, 1), (4, 2), (2, 3)])
+def test_use_mesh_admitted(runs, use_mesh, n_hosts):
+    """use_mesh = 1, and any use_mesh in a multi-host run, take the
+    single-device path, as in the reference; use_mesh = 1 runs (here from
+    the finished run's markers) to the same corrected reads."""
+    _, tcfg, _, got = runs
+    cfg = tload(tcfg)
+    cfg.use_mesh = use_mesh
+    assert trun_mod.check_ported(cfg, n_hosts=n_hosts) is None
+    if n_hosts == 1:
+        again = trun(cfg, device="cpu")
+        assert np.array_equal(again["cns"].words, got["cns"].words)
 
 
 @pytest.mark.parametrize("read_type", ["clr", "hifi", "ccs"])
@@ -147,14 +164,19 @@ def test_load_config_derived_fields_equal(tmp_path, read_type):
     assert got[1][2:4] == ((51, 51) if code == 3 else (15, 5))
 
 
-def test_cli_routes(tmp_path):
+def test_cli_routes(tmp_path, capsys):
     from nextdenovo_tpu_torch.__main__ import main
     assert main([]) == 0
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["seq_stat", "-f", "x"])
+    # the host sub-commands are admitted (tests/test_torch_cli.py holds
+    # them against the JAX package's CLI)
+    (tmp_path / "reads.fa").write_text(">r0\nACGTACGTAC\n")
+    (tmp_path / "seq.fofn").write_text(str(tmp_path / "reads.fa") + "\n")
+    assert main(["seq_stat", "-f", str(tmp_path / "seq.fofn"),
+                 "-c", "1"]) == 0
+    assert "clean reads: 1  bases: 10" in capsys.readouterr().out
     (tmp_path / "input.fofn").write_text("reads.fa\n")
     # task = all is admitted; what is still refused is refused through
-    # both spellings of the command, before any work
+    # every spelling of the command, before any work
     assert trun_mod.check_ported(tload(write_correct_cfg(
         tmp_path, "a", GLEN, "wd_a", task="all"))) is None
     cfgp = write_correct_cfg(tmp_path, "c", GLEN, "wd_c", task="all",
@@ -163,4 +185,6 @@ def test_cli_routes(tmp_path):
         main(["run", cfgp, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main([cfgp, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        main(["launch", cfgp, "--device", "cpu"])
     assert not os.path.exists(tmp_path / "wd_c")

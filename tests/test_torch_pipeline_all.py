@@ -1,10 +1,13 @@
 """The second slice as a whole: task = all (stages 00-06) through the
 port's run_pipeline on the CPU against the JAX package's run_pipeline with
 its TPU path on the CPU (interpret=True), from the same reads.  Tolerance:
-exact equality of every stage file through nd.asm.fasta.  (input_type =
-corrected, task = assemble: tests/test_torch_pipeline_assemble.py.)"""
+exact equality of every stage file through nd.asm.fasta; the same for the
+port's two-host run (`launch --hosts 2`).  (input_type = corrected,
+task = assemble: tests/test_torch_pipeline_assemble.py.)"""
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -117,3 +120,48 @@ def test_done_markers_and_resume_04_06(runs, monkeypatch):
     monkeypatch.setattr(pdrv, "map_polish_reads", boom)
     trun(tload(tcfg), device="cpu")
     assert open(d / "wd_t" / "06.ctg_cns" / "nd.asm.fasta").read() == fasta
+
+
+def test_two_hosts_equal_single_host(runs):
+    """`launch --hosts 2 --submit local --device cpu`: two host processes
+    share a new workdir on the same reads.  Every merged stage file equals
+    the JAX package's single-host file, and each host wrote its parts."""
+    d = runs[0]
+    cfg = write_correct_cfg(d, "m", GLEN, "wd_m", task="all",
+                            extra=GRAPH_SMALL)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "nextdenovo_tpu_torch", "launch", cfg,
+         "--hosts", "2", "--submit", "local", "--device", "cpu"],
+        cwd=str(d), env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    ref, got = d / "wd_j", d / "wd_m"
+    for rel in ("01.raw_align/raw.ovl.npz", "02.sort_align/sorted.ovl.npz",
+                "03.seed_cns/cns.npz", "04.cns_align/cns.filt.dovt.ovl.npz",
+                "04.cns_align/cnsinfo.npz", "05.ctg_graph/draft.npz"):
+        assert_same_npz(str(ref / rel), str(got / rel), rel)
+    for rel in ("02.sort_align/bl.json", "03.seed_cns/cns.fasta",
+                "04.cns_align/cnsbl.json", "05.ctg_graph/node_qv.json",
+                "05.ctg_graph/nd.asm.p.fasta", "05.ctg_graph/nd.asm.p.path",
+                "05.ctg_graph/nd.asm.p.gfa", "05.ctg_graph/nd.asm.p.graphml",
+                "06.ctg_cns/nd.asm.fasta", "06.ctg_cns/nd.asm.stat"):
+        a = open(ref / rel, "rb").read()
+        assert a and a == open(got / rel, "rb").read(), rel
+    for k in (0, 1):
+        for rel in (f"01.raw_align/raw.ovl.h{k}.npz",
+                    f"03.seed_cns/cns.h{k}.npz",
+                    f"04.cns_align/cns.realn.h{k}.npz",
+                    f"06.ctg_cns/map.h{k}.npz",
+                    f"06.ctg_cns/pieces.h{k}.npz"):
+            assert (got / rel).exists(), rel
+        rows = {json.loads(l)["name"]: json.loads(l)
+                for l in open(got / f"trace.h{k}.jsonl")}
+        assert {"launches/03.seed_cns", "launches/06.ctg_cns"} <= set(rows)
+        assert rows["seed_cns"]["records"] > 0            # each host corrected
+    # the two hosts split the seeds' correction between them
+    n = [len(np.load(str(got / f"03.seed_cns/cns.h{k}.npz"))["length"])
+         for k in (0, 1)]
+    assert min(n) > 0 and sum(n) == len(np.load(
+        str(ref / "03.seed_cns/cns.npz"))["length"])
