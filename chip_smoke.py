@@ -55,6 +55,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              that both finish, that each wrote its cns/map/pieces parts and
              launched myers_fwd in stage 03 (its trace.h<k>.jsonl), and that
              cns.fasta and nd.asm.fasta are byte for byte main_path's
+  mesh_path  the main path's reads and config with use_mesh = 8 in a fresh
+             workdir through the CLI entry (stages 01-04 and 06 on the mesh
+             path, eight shards on the one card), launch counters at 0 and
+             peak memory reset just before; checks the markers, that
+             raw.ovl and sorted.ovl equal main_path's and bl.json does once
+             parsed, a launch of myers_fwd in each of stages 03, 04 and 06,
+             and the main path's limits on the corrected reads and contigs;
+             prints the stage walls, the launches by stage, the peak memory
+             and how many corrected reads are byte-equal to main_path's
   hifi_path  read_type = hifi, task = all through the CLI entry on 0.4 %
              error reads (30x, 15 kb mean) of a 1 Mb genome, with the launch
              counters at 0 and the peak memory reset just before; checks
@@ -87,7 +96,8 @@ line holds {"kernels": [...]}: four kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run; `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
-process of the two-host run.
+process of the two-host run, `launches_mesh` its launches on the
+use_mesh = 8 run.
 """
 from __future__ import annotations
 
@@ -1125,7 +1135,6 @@ def phase_main_path(dev, genome_size, workdir):
     import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.__main__ import main as cli_main
-    from nextdenovo_tpu_torch.io.seqstore import SeqStore
     from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
     from nextdenovo_tpu_torch.utils import get_tracer
 
@@ -1212,6 +1221,25 @@ def phase_main_path(dev, genome_size, workdir):
         if retry06 and at("06.ctg_cns", name) <= at("05.ctg_graph", name):
             raise RuntimeError(f"stage 06 retried pairs without launching "
                                f"{name}")
+    for name in ("myers_fwd", "myers_tb"):
+        if launches[name] == 0:
+            raise RuntimeError(f"kernel {name} was not launched on the main path")
+    if retry_pairs and (launches["wave_fwd"] == 0 or launches["wave_tb"] == 0):
+        raise RuntimeError("retry tier ran without launching the wave kernels")
+    _check_result("main_path", dev, wd, sim, genome)
+    return launches, dict(wall_s=wall, peak_bytes=peak,
+                          retry_pairs=max(retry_pairs, default=0),
+                          sim=sim, genome=genome)
+
+
+def _check_result(tag, dev, wd, sim, genome):
+    """The limits of PERF.md section 2 on a task = all run of the simulated
+    reads: at least 80 % of the seeds that stage 02 did not blacklist come
+    back corrected, at identity >= 0.98 against their truth; the longest
+    contig > 0.6 x and the total < 1.6 x the genome, 31-mer identity
+    >= 0.9."""
+    import numpy as np
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
     if not os.path.exists(os.path.join(wd, "03.seed_cns", "cns.fasta")):
         raise RuntimeError("cns.fasta missing")
     meta = json.load(open(os.path.join(wd, "00.db", "meta.json")))
@@ -1221,31 +1249,22 @@ def phase_main_path(dev, genome_size, workdir):
     # stage 02 blacklists contained / chimeric seeds on purpose; of the
     # seeds it lets through, at least 80 % must come back corrected
     frac = len(cns) / max(1, n_seeds - n_black)
-    log(f"[main_path] seeds {n_seeds} (cutoff {meta['seed_cutoff']}), "
+    log(f"[{tag}] seeds {n_seeds} (cutoff {meta['seed_cutoff']}), "
         f"blacklisted by sort_align {n_black}, corrected {len(cns)} "
         f"= {frac:.3f} of the seeds that were not blacklisted "
         f"({len(cns) / max(1, n_seeds):.3f} of all seeds)")
     if frac < 0.8:
         raise RuntimeError(f"only {frac:.3f} of the eligible seeds came "
                            "back corrected")
-    for name in ("myers_fwd", "myers_tb"):
-        if launches[name] == 0:
-            raise RuntimeError(f"kernel {name} was not launched on the main path")
-    if retry_pairs and (launches["wave_fwd"] == 0 or launches["wave_tb"] == 0):
-        raise RuntimeError("retry tier ran without launching the wave kernels")
-
-    _check_identity("main_path", dev, wd, cns, sim, genome, 0.98)
-
+    _check_identity(tag, dev, wd, cns, sim, genome, 0.98)
     # the assembly against the simulated genome
-    longest, total, kid = _contig_report("main_path", wd, genome)
+    longest, total, kid = _contig_report(tag, wd, genome)
     if longest <= 0.6 * len(genome):
         raise RuntimeError(f"longest contig {longest} <= 0.6 x genome")
     if total >= 1.6 * len(genome):
         raise RuntimeError(f"contig total {total} >= 1.6 x genome")
     if kid < 0.9:
         raise RuntimeError(f"contig 31-mer identity {kid:.4f} below 0.9")
-    return launches, dict(wall_s=wall, peak_bytes=peak,
-                          retry_pairs=max(retry_pairs, default=0))
 
 
 STAGES = ("00.db", "01.raw_align", "02.sort_align", "03.seed_cns",
@@ -1543,6 +1562,188 @@ def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
         per_host.append({n: rows["06.ctg_cns"][n] for n in names})
     log(f"[multihost_path] launches per host: {json.dumps(per_host)}")
     return per_host
+
+
+MESH_SHARDS = 8
+
+
+def _first_diff(a_p, b_p):
+    """Where two OvlBlock .npz files first differ, as text ("" if equal)."""
+    import numpy as np
+    a, b = dict(np.load(a_p)), dict(np.load(b_p))
+    if sorted(a) != sorted(b):
+        return f"fields {sorted(a)} against {sorted(b)}"
+    fs = sorted(a)
+    n_a, n_b = len(a[fs[0]]), len(b[fs[0]])
+    n = min(n_a, n_b)
+    bad = np.zeros(n, bool)
+    for f in fs:
+        bad |= a[f][:n] != b[f][:n]
+    if bad.any():
+        i = int(np.argmax(bad))
+        return (f"record {i}: {({f: int(a[f][i]) for f in fs})} against "
+                f"{({f: int(b[f][i]) for f in fs})}")
+    return "" if n_a == n_b else f"{n_a} records against {n_b}"
+
+
+def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
+    """The main path's reads and config with use_mesh = 8 in a fresh
+    workdir through the CLI entry: stages 01, 02, 03, 04 and 06 run the
+    mesh path, eight shards on the one card.  Launch counters at 0 and the
+    peak memory reset just before.  Checks the markers, that raw.ovl and
+    sorted.ovl equal the main path's and bl.json does once parsed (its
+    seeds come in shard order), a launch of myers_fwd in each of stages 03,
+    04 and 06, and the limits of PERF.md section 2; prints the stage walls,
+    the launches by stage, the peak device memory and how many corrected
+    reads are byte-equal to the main path's (the mesh path aligns long
+    supports whole, so not all need be).  Returns the launch counts."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.__main__ import main as cli_main
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.utils import get_tracer
+
+    # the main path's run.cfg with another workdir and use_mesh
+    text = open(os.path.join(workdir, "run.cfg")).read()
+    cfg_p = os.path.join(workdir, "run_mesh.cfg")
+    with open(cfg_p, "w") as fh:
+        fh.write(text.replace("workdir = wd\n", "workdir = wd_mesh\nuse_mesh = "
+                              f"{n_shards}\n"))
+    tracer = get_tracer()
+    tracer.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.time()
+    rc = cli_main(["run", cfg_p])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise RuntimeError(f"CLI entry returned {rc}")
+    log(f"[mesh_path] task=all use_mesh={n_shards} wall {wall:.1f}s, peak "
+        f"device memory {peak / 2**20:.0f} MiB, launches "
+        f"{json.dumps(launches)}")
+    log("[mesh_path] spans:\n" + tracer.summary())
+    wd, wd_main = os.path.join(workdir, "wd_mesh"), os.path.join(workdir, "wd")
+    marks = _stage_report("mesh_path", tracer, t0, wd)
+    prev, in_stage = dict.fromkeys(launches, 0), {}
+    for st in STAGES:
+        now = {n: int(marks[st].attrs[n]) for n in launches}
+        in_stage[st] = {n: now[n] - prev[n] for n in now if now[n] - prev[n]}
+        prev = now
+    log(f"[mesh_path] launches by stage: {json.dumps(in_stage)}")
+    # spans of stage 01 only: the mesh overlap step also runs in 04 and 06
+    t01 = marks["01.raw_align"].t0
+    in01 = {n: sum(s_.wall for s_ in tracer.spans if s_.name == n
+                   and s_.t0 < t01)
+            for n in ("raw_align", "mesh/build_index", "mesh/sketch_route",
+                      "mesh/lookup_route", "mesh/vote_emit")}
+    log("[mesh_path] stage 01 spans: " + ", ".join(
+        f"{n} {v:.2f}s" for n, v in in01.items()))
+    for st in ("03.seed_cns", "04.cns_align", "06.ctg_cns"):
+        if in_stage[st].get("myers_fwd", 0) < 1:
+            raise RuntimeError(f"the mesh run launched no myers_fwd in {st}")
+    for rel in ("01.raw_align/raw.ovl.npz", "02.sort_align/sorted.ovl.npz"):
+        diff = _first_diff(os.path.join(wd_main, rel), os.path.join(wd, rel))
+        if diff:
+            raise RuntimeError(f"{rel} of the mesh run differs from the main "
+                               f"path's: {diff}")
+    bl_p = os.path.join("02.sort_align", "bl.json")
+    bl_main = json.load(open(os.path.join(wd_main, bl_p)))
+    bl_mesh = json.load(open(os.path.join(wd, bl_p)))
+    if bl_main != bl_mesh:
+        raise RuntimeError("bl.json of the mesh run differs from the main "
+                           "path's")
+    log(f"[mesh_path] raw.ovl and sorted.ovl equal to main_path's, bl.json "
+        f"equal once parsed ({len(bl_mesh)} seeds; in the same key order: "
+        f"{list(bl_main) == list(bl_mesh)})")
+    main_cns = SeqStore.load(os.path.join(wd_main, "03.seed_cns", "cns"))
+    mesh_cns = SeqStore.load(os.path.join(wd, "03.seed_cns", "cns"))
+    by_name = {nm: main_cns.get(i).tobytes()
+               for i, nm in enumerate(main_cns.names)}
+    same = sum(by_name.get(nm) == mesh_cns.get(i).tobytes()
+               for i, nm in enumerate(mesh_cns.names))
+    asm = [open(os.path.join(w, "06.ctg_cns", "nd.asm.fasta"), "rb").read()
+           for w in (wd_main, wd)]
+    log(f"[mesh_path] corrected reads {len(mesh_cns)} (main path "
+        f"{len(main_cns)}), {same} byte-equal to the main path's; "
+        f"nd.asm.fasta byte-equal: {asm[0] == asm[1]}")
+    _check_result("mesh_path", dev, wd, sim, genome)
+    _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards)
+    return launches
+
+
+def _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards, n_long=2):
+    """A few of the mesh run's seeds corrected again on the CPU:
+    mesh_correction with device "cpu" (the plain versions, which
+    tests/test_torch_mesh.py holds equal to the JAX package's mesh path) on
+    the run's own store, sorted.ovl and bl.json cut to those seeds.  The
+    seeds: the n_long with a (support, segment) pair over CORR_CHUNK_T whose
+    longest pair is the shortest (the plain aligner's time grows with it),
+    and of the two jobs on either side of distributed_correct's first group
+    boundary (the job that filled the group, and the next) the one with
+    the shorter longest pair.  Their corrected reads must be the card's,
+    name for name and base for base."""
+    import numpy as np
+    from nextdenovo_tpu_torch.correct.driver import (CORR_CHUNK_T,
+                                                     iter_seed_jobs)
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.overlap.records import OvlBlock
+    from nextdenovo_tpu_torch.parallel.dist_correct import GROUP_PAIRS
+    from nextdenovo_tpu_torch.parallel.dist_pipeline import mesh_correction
+    from nextdenovo_tpu_torch.parallel.mesh import make_mesh
+    from nextdenovo_tpu_torch.pipeline.config import load_config
+    from nextdenovo_tpu_torch.pipeline.run import correct_kw
+    kw = correct_kw(load_config(cfg_p))
+    store = SeqStore.load(os.path.join(wd, "00.db", "reads"))
+    srt = OvlBlock.load(os.path.join(wd, "02.sort_align", "sorted.ovl"))
+    bl = {int(k): v for k, v in json.load(open(
+        os.path.join(wd, "02.sort_align", "bl.json"))).items()}
+    jobs = list(iter_seed_jobs(
+        srt, bl, np.asarray(store.length), min_len_seed=kw["min_len_seed"],
+        min_len_aln=kw["min_len_aln"], min_cov_seed=kw["min_cov_seed"],
+        max_cov_aln=kw["max_cov_aln"]))
+    longest = {j.seed: max(max(se - ss, sqe - sqs) + 1
+                           for (_, _, ss, se, sqs, sqe) in j.sups)
+               for j in jobs}
+    long_ = sorted((s_ for s_ in longest if longest[s_] > CORR_CHUNK_T),
+                   key=longest.get)[:n_long]
+    if len(long_) < n_long:
+        raise RuntimeError(f"only {len(long_)} seeds of the mesh run have a "
+                           f"pair over {CORR_CHUNK_T} bases")
+    # distributed_correct's order: by owner shard, then job order
+    owned = sorted(jobs, key=lambda j: j.seed % n_shards)
+    cum = np.cumsum([len(j.sups) for j in owned])
+    if cum[-1] <= GROUP_PAIRS:
+        raise RuntimeError(f"the mesh run's {cum[-1]} pairs fill no group "
+                           f"of {GROUP_PAIRS}")
+    b = int(np.argmax(cum >= GROUP_PAIRS))
+    edge = min(owned[b].seed, owned[b + 1].seed, key=longest.get)
+    pick = sorted(set(long_ + [edge]))
+    sub = srt.take(np.nonzero(np.isin(np.asarray(srt.qname), pick))[0])
+    n_pairs = sum(len(j.sups) for j in jobs if j.seed in pick)
+    t0 = time.time()
+    cpu = mesh_correction(store, sub, bl, make_mesh(n_shards, "cpu"), **kw)
+    cpu_s = time.time() - t0
+    mine = {str(s_) for s_ in pick}
+    card = [(nm, mesh_cns.get(i).tobytes())
+            for i, nm in enumerate(mesh_cns.names)
+            if nm.split("_")[0] in mine]
+    plain = [(nm, cpu.get(i).tobytes()) for i, nm in enumerate(cpu.names)]
+    if card != plain or not card:
+        first = next((a[0] for a, b in zip(card, plain) if a != b), None)
+        raise RuntimeError(
+            f"mesh_path: seeds {pick} corrected on the CPU give "
+            f"{[(nm, len(x)) for nm, x in plain]}, the card's run "
+            f"{[(nm, len(x)) for nm, x in card]} (names, lengths); first "
+            f"read that differs: {first}")
+    log(f"[mesh_path] card == cpu: seeds {pick} (longest pairs "
+        f"{[longest[s_] for s_ in pick]} bases, {n_pairs} pairs) give the "
+        f"same {len(card)} corrected reads, base for base; CPU "
+        f"{cpu_s:.1f}s")
 
 
 def _anchor(c, g, k=25, tries=20):
@@ -1857,6 +2058,9 @@ def main() -> int:
     try:
         launches, facts = phase_main_path(dev, GENOME_SIZE, workdir)
         mh_launches = phase_multihost_path(workdir)
+        with watchdog(480, "the mesh phase"):
+            mesh_launches = phase_mesh_path(dev, workdir, facts["sim"],
+                                            facts["genome"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_hifi_")
@@ -1881,6 +2085,7 @@ def main() -> int:
             path=KERNEL_PATH.get(name, "task = all"),
             launches_hifi=hifi_launches[name],
             launches_multihost=[h[name] for h in mh_launches],
+            launches_mesh=mesh_launches[name],
             **({"host_native_ms": t["host_native_ms"]}
                if "host_native_ms" in t else {})))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")

@@ -11,9 +11,10 @@ Ported so far: task = all | correct | assemble — read correction (stages
 00.db, 01.raw_align, 02.sort_align, 03.seed_cns) and assembly (04.cns_align,
 05.ctg_graph, 06.ctg_cns) — for ont/clr/hifi reads, on one device or as
 several host processes sharing a workdir (parallel/launcher.py, the
-`launch` sub-command); the host sub-commands seq_stat, seq_bit, ovl_cvt and
-stat; and every kernel of the JAX package (ops/myers.py, ops/align.py,
-ops/extend.py).  Not ported: the multi-device stages (use_mesh > 1).
+`launch` sub-command); the mesh path of use_mesh > 1, its shards on one
+device (parallel/mesh.py, parallel/dist_*.py); the host sub-commands
+seq_stat, seq_bit, ovl_cvt and stat; and every kernel of the JAX package
+(ops/myers.py, ops/align.py, ops/extend.py).
 """
 
 __version__ = "0.1.0"

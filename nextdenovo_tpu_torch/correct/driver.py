@@ -235,6 +235,32 @@ def correct_seeds(store: SeqStore, jobs: List[SeedJob], read_type: int = 1,
         ex.shutdown(wait=True)
 
 
+def seed_pieces(seed: int, ln: int, ide: float, seq: str, min_len_seed: int,
+                min_error_corrected_ratio: float, split: bool):
+    """A seed's consensus -> ([(name, sequence)], failed): nothing below
+    min_len_seed or min_error_corrected_ratio (failed when the consensus
+    gave up, ln == 3); with split the corrected (uppercase) runs of at
+    least min_len_seed, named seed_1, seed_2, ... (nextcorrect.py:237-247);
+    else the whole sequence upper-cased, named by the seed."""
+    if ln < min_len_seed or ide < min_error_corrected_ratio:
+        return [], int(ln == 3)
+    if not split:
+        return [(str(seed), seq.upper())], 0
+    runs = []
+    cur = []
+    for c in seq:
+        if c in "ACGT":
+            cur.append(c)
+        else:
+            if cur:
+                runs.append("".join(cur))
+            cur = []
+    if cur:
+        runs.append("".join(cur))
+    return [(f"{seed}_{i+1}", r) for i, r in enumerate(runs)
+            if len(r) >= min_len_seed], 0
+
+
 def run_correction(store: SeqStore, sorted_blk, blacklist: Dict[int, str],
                    read_type: int = 1, min_len_seed: int = 1000,
                    min_error_corrected_ratio: float = 0.8,
@@ -293,28 +319,9 @@ def run_correction(store: SeqStore, sorted_blk, blacklist: Dict[int, str],
             **{k: v for k, v in kw.items()
                if k in ("min_len_aln", "max_cov_aln", "min_cov",
                         "max_lq_length")}):
-        pieces = []
-        if ln < min_len_seed or ide < min_error_corrected_ratio:
-            if ln == 3:
-                n_fail += 1
-        elif split:
-            # keep uppercase (corrected) runs only
-            runs = []
-            cur = []
-            for c in seq:
-                if c in "ACGT":
-                    cur.append(c)
-                else:
-                    if cur:
-                        runs.append("".join(cur))
-                    cur = []
-            if cur:
-                runs.append("".join(cur))
-            for i, r in enumerate(runs):
-                if len(r) >= min_len_seed:
-                    pieces.append((f"{seed}_{i+1}", r))
-        else:
-            pieces.append((str(seed), seq.upper()))
+        pieces, failed = seed_pieces(seed, ln, ide, seq, min_len_seed,
+                                     min_error_corrected_ratio, split)
+        n_fail += failed
         for name, r in pieces:
             out_names.append(name)
             out_seqs.append(np.frombuffer(r.encode().translate(_TR), np.uint8))

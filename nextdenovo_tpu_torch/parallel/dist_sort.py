@@ -1,0 +1,118 @@
+"""Seed-keyed overlap sort of the mesh path (PyTorch/CUDA port of
+nextdenovo_tpu/parallel/dist_sort.py).
+
+Every shard symmetrizes its block of raw overlap records to the seed-keyed
+orientation, routes each record to the shard owning its seed (seed %
+n_shards, all_to_all), and sorts what it received by the total order
+(seed asc, match desc, span asc, tname, ts, qs, rev).  A seed's records then
+sit on one shard, and the per-seed coverage/chimera filter (native
+nd_ovl_sort_filter) runs shard by shard.
+
+Rows that tie on all seven keys (the same seed, match, span, target, ts, qs
+and strand, differing only in te) keep the order in which their shard
+received them: the JAX package's multi-operand sort keeps that order on
+the CPU, and the port's sorts are stable passes (tests/test_torch_mesh.py
+holds such a tie).  The shards run one after another on the mesh's device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..overlap.engine import _stable_lexsort
+from ..overlap.records import OvlBlock
+from ..overlap.sort import SortResult, _filter_sorted_native, _rows_to_block
+from .mesh import Mesh, all_to_all, bucketize, psum, replicate, shard_rows
+
+
+def distributed_seed_sort_step(rec8, is_seed, lens, *, cap_route: int,
+                               mesh: Mesh):
+    """rec8: (n_shards*R, 8) raw records (qname, rev, qs, qe, tname, ts, te,
+    match; exclusive ends), shard s owning rows [s*R, (s+1)*R); is_seed
+    (n_reads,) bool and lens (n_reads,) read by every shard.  Returns
+    (rows, n_tot, n_sent): rows[d] is shard d's (m_d, 8) int64 tensor of
+    seed-keyed records in the host filter's total order, ends INCLUSIVE;
+    n_tot the records the shards received, n_sent the records they routed
+    (they differ when a bucket overflowed cap_route)."""
+    n_shards = mesh.n_shards
+    rec8 = shard_rows(mesh, rec8).to(torch.int64)
+    is_seed = replicate(mesh, np.asarray(is_seed, bool))
+    lens = replicate(mesh, lens).to(torch.int64)
+    n_reads = is_seed.shape[0]
+    sent, n_sent = [], []
+    for s in range(n_shards):
+        rec = rec8[s]
+        q, rev, qs, qe = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
+        t, ts, te, match = rec[:, 4], rec[:, 5], rec[:, 6], rec[:, 7]
+        keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
+        sq = torch.clamp(q, 0, n_reads - 1)
+        st_ = torch.clamp(t, 0, n_reads - 1)
+        # the two symmetrized views (overlap.sort.symmetrize semantics, ends
+        # made inclusive)
+        v_q = keep & is_seed[sq] & (lens[sq] >= qe)
+        v_t = keep & is_seed[st_] & (lens[st_] >= te)
+        cols = [torch.cat([a, b]) for a, b in (
+            (q, t), (rev, rev), (qs, ts), (qe - 1, te - 1),
+            (t, q), (ts, qs), (te - 1, qe - 1), (match, match))]
+        valid = torch.cat([v_q, v_t])
+        buckets, _ = bucketize(cols, cols[0] % n_shards, valid, n_shards,
+                               cap_route)
+        sent.append(buckets)
+        n_sent.append(int(valid.sum()))
+    rows = []
+    for got in all_to_all(sent):
+        qn, rv, s_, e_, tn, ts2, te2, mt = (
+            torch.cat([b[i] for b in got]) for i in range(8))
+        # total order shared with the host path: (qname, -match, span,
+        # tname, ts, qs, rev)
+        perm = _stable_lexsort([qn, -mt, e_ - s_, tn, ts2, s_, rv])
+        rows.append(torch.stack([qn, rv, s_, e_, tn, ts2, te2, mt],
+                                dim=1)[perm])
+    return rows, psum(len(r) for r in rows), psum(n_sent)
+
+
+def distributed_sort_filter(raw: OvlBlock, is_seed: np.ndarray,
+                            lens: np.ndarray, mesh: Mesh,
+                            max_bin_cov: int = 40, max_flank_len: int = 300,
+                            is_hq: bool = False) -> SortResult:
+    """Full ovl_sort over the mesh: shuffle and sort on the device, then
+    the native per-seed filter per shard on the host."""
+    n, n_shards = len(raw), mesh.n_shards
+    R = -(-max(n, 1) // n_shards)
+    rec8 = np.full((R * n_shards, 8), 0, np.int32)
+    for i, k in enumerate(("qname", "rev", "qs", "qe", "tname", "ts", "te",
+                           "match")):
+        rec8[:n, i] = np.asarray(raw.data[k], np.int32)
+    # pad rows have q == t == 0: the keep gate drops them
+    cap_route = 2 * (2 * R) // n_shards + 256
+    rows, n_tot, n_sent = distributed_seed_sort_step(
+        rec8, is_seed, np.asarray(lens, np.int32), cap_route=cap_route,
+        mesh=mesh)
+    if n_tot != n_sent:
+        raise RuntimeError(
+            f"distributed sort overflow: routed {n_tot} != sent {n_sent} "
+            f"records (raise cap_route)")
+
+    lens64 = np.asarray(lens, np.int64)
+    shard_recs = [r.cpu().numpy().astype(np.int32) for r in rows]
+    # min_seed_len must match the host path: min length over seeds PRESENT
+    # in the symmetrized record set (global across shards)
+    present = np.unique(np.concatenate([r[:, 0] for r in shard_recs]))
+    min_seed_len = int(lens64[present].min()) if len(present) else 0
+    rows_parts, bl = [], {}
+    for shard_rows_ in shard_recs:
+        if not len(shard_rows_):
+            continue
+        rows_out, bl_d = _filter_sorted_native(
+            shard_rows_, lens64, min_seed_len, max_bin_cov, max_flank_len,
+            is_hq)
+        rows_parts.append(rows_out)
+        # shard by shard: bl.json lists the seeds in shard order
+        bl.update(bl_d)
+    if not rows_parts:
+        return SortResult(OvlBlock.empty(), {})
+    out = np.concatenate(rows_parts)
+    # canonical global order: shards interleave seeds (seed % n_shards), so
+    # re-sort by seed id (stable keeps the within-seed filter order)
+    out = out[np.argsort(out[:, 0], kind="stable")]
+    return SortResult(_rows_to_block(out), bl)

@@ -36,10 +36,11 @@ class Config:
     workdir: str = "./01_rundir"
     rewrite: bool = True
     rerun: int = 3             # bounded stage rerun (nextDenovo:652-661)
-    # use_mesh = N: run the heavy stages as SPMD programs over an N-device
-    # jax mesh (parallel/dist_pipeline.py) — the device-collective form of
-    # the reference's job-matrix parallelism (nextDenovo:426-467).  Output
-    # is byte-identical to use_mesh = 0 (tests/test_mesh_pipeline.py).
+    # use_mesh = N > 1 (one host): run the heavy stages as the mesh path,
+    # N shards on the one device (parallel/dist_pipeline.py) — the
+    # collective form of the reference's job-matrix parallelism
+    # (nextDenovo:426-467).  Its stage files equal the JAX package's
+    # use_mesh = N run (tests/test_torch_pipeline_mesh.py).
     use_mesh: int = 0
     # [correct_option]
     read_cutoff: int = 1000

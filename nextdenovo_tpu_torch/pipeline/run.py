@@ -17,9 +17,9 @@ skips 01-03):
 
 Multi-host runs (hosts=parallel.launcher.HostContext; `python -m
 nextdenovo_tpu_torch launch`) shard stages 01, 03, 04 and 06 round-robin by
-host and run 00, 02 and 05 on host 0.  Multi-device stages (use_mesh > 1 on
-one host) are not ported yet; such a configuration is refused before any
-work.
+host and run 00, 02 and 05 on host 0.  use_mesh = N > 1 on one host runs
+stages 01, 02, 03, 04 and 06 as the reference's mesh path, N shards on the
+one device (parallel/dist_pipeline.py).
 
 Usage: python -m nextdenovo_tpu_torch run.cfg [--device cpu]
 """
@@ -49,14 +49,26 @@ from .config import Config, load_config
 log = logging.getLogger("nextdenovo_tpu_torch")
 
 
+def mesh_shards(cfg: Config, n_hosts: int = 1) -> int:
+    """The shard count of the mesh path, 0 for the single-device path: the
+    reference takes the mesh path for use_mesh > 1 on one host (use_mesh =
+    1, and any use_mesh in a multi-host run, take the single-device
+    path)."""
+    n = int(getattr(cfg, "use_mesh", 0) or 0)
+    return n if n > 1 and n_hosts <= 1 else 0
+
+
 def check_ported(cfg: Config, n_hosts: int = 1) -> None:
-    """Refuse, with a clear error, every configuration that needs a part
-    of the system that is not ported yet: the reference's mesh path, which
-    it takes for use_mesh > 1 on one host (use_mesh = 1, and any use_mesh
-    in a multi-host run, take the single-device path there as here)."""
-    if int(getattr(cfg, "use_mesh", 0) or 0) > 1 and n_hosts <= 1:
+    """Refuse, before any work, a configuration the reference cannot run:
+    raw HiFi reads on the mesh path, whose stage 01 sketches at raw_k = 51
+    while the mesh overlap step's sketch packs k <= 31 only (the JAX
+    package fails there on an assertion)."""
+    if mesh_shards(cfg, n_hosts) and cfg.read_type == "hifi" \
+            and cfg.input_type != "corrected":
         raise NotImplementedError(
-            "not ported yet: use_mesh > 1 (multi-device stages)")
+            "use_mesh > 1 with read_type = hifi: the mesh path's raw_align "
+            "sketches at raw_k = 51 and its sketch packs k <= 31 only, as in "
+            "the reference; run HiFi reads with use_mesh <= 1")
 
 
 def retry(name: str, fn, n: int = 3):
@@ -121,6 +133,14 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
     multi = hs.n_hosts > 1
     check_ported(cfg, hs.n_hosts)
     dev = resolve_device(device)
+    # use_mesh = N: the heavy stages run as the reference's mesh path, N
+    # shards on this device (parallel/dist_pipeline.py)
+    mesh, n_mesh = None, mesh_shards(cfg, hs.n_hosts)
+    if n_mesh:
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(n_mesh, dev)
+        log.info("use_mesh=%d: mesh stages, %d shards on %s", n_mesh, n_mesh,
+                 dev)
     # rewrite=no: keep any previous run safe by moving the workdir to
     # .backup.vN before starting fresh (nextDenovo:577-585).  rewrite=yes
     # (default) reuses the workdir in place, which is also how resume works.
@@ -181,7 +201,7 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
         cns_store = store
     else:
         cns_store = _correct_stages(cfg, dev, hs, store, seed_mask, lens,
-                                    rids)
+                                    rids, mesh)
 
     if cfg.task == "correct":
         _dump_trace(cfg, hs)
@@ -194,13 +214,22 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
     elif not st.done():
         cns_rids = np.arange(len(cns_store))
         with span("cns_align", reads=len(cns_store)):
-            cns_ovl, bl, cinfo = retry(
-                "cns_align", lambda: cns_overlap_stage(
-                    cns_store, cns_rids, k=cfg.cns_k, w=cfg.cns_w,
-                    maxhan1=cfg.maxhan1, maxhan2=cfg.maxhan2,
-                    min_span=cfg.cns_min_span, device=dev,
-                    return_info=True),
-                cfg.rerun)
+            if mesh is not None:
+                from ..parallel.dist_pipeline import mesh_cns_align
+                cns_ovl, bl, cinfo = retry(
+                    "cns_align(mesh)", lambda: mesh_cns_align(
+                        cns_store, mesh, k=cfg.cns_k,
+                        w=cfg.cns_w, maxhan1=cfg.maxhan1,
+                        maxhan2=cfg.maxhan2, min_span=cfg.cns_min_span),
+                    cfg.rerun)
+            else:
+                cns_ovl, bl, cinfo = retry(
+                    "cns_align", lambda: cns_overlap_stage(
+                        cns_store, cns_rids, k=cfg.cns_k, w=cfg.cns_w,
+                        maxhan1=cfg.maxhan1, maxhan2=cfg.maxhan2,
+                        min_span=cfg.cns_min_span, device=dev,
+                        return_info=True),
+                    cfg.rerun)
         cns_ovl.save(st.path("cns.filt.dovt.ovl"))
         json.dump(bl, open(st.path("cnsbl.json"), "w"))
         np.savez(st.path("cnsinfo.npz"), st=cinfo.st,
@@ -272,9 +301,16 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
             map_p = st.path(f"map.h{hs.host_id}" if multi else "map")
             if not os.path.exists(map_p + ".npz"):
                 with span("ctg_align", contigs=len(seqs)):
-                    part = map_polish_reads(
-                        seqs, map_store, device=dev,
-                        shard=(hs.n_hosts, hs.host_id) if multi else None)
+                    if mesh is not None:
+                        from ..parallel.dist_polish import \
+                            distributed_map_polish_reads
+                        part = distributed_map_polish_reads(
+                            seqs, map_store, mesh)
+                    else:
+                        part = map_polish_reads(
+                            seqs, map_store, device=dev,
+                            shard=(hs.n_hosts, hs.host_id) if multi
+                            else None)
                 part.save(map_p)
             if multi:
                 hs.barrier("polish_map")
@@ -290,6 +326,12 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                 warn_fragmented(per_ctg, [len(s) for s in seqs],
                                 cfg.read_type_code)
                 keyed = []
+                align_fn = None
+                if mesh is not None:
+                    from ..parallel.dist_correct import \
+                        distributed_band_align
+                    align_fn = (lambda a_, b_: distributed_band_align(
+                        a_, b_, mesh))
                 with span("ctg_cns", contigs=len(seqs)):
                     for ci in hs.shard(len(seqs)):
                         ci = int(ci)
@@ -300,7 +342,8 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                                 lambda: polish_one(
                                     seqs[ci], per_ctg[ci], map_store, qv,
                                     read_type=cfg.read_type_code,
-                                    split=cfg.ctg_split, device=dev),
+                                    split=cfg.ctg_split, device=dev,
+                                    align_fn=align_fn),
                                 cfg.rerun)):
                             keyed.append((f"{ci:06d}.{j:03d}", p))
                         log.info("polish: contig %d done", ci)
@@ -342,11 +385,12 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
 
 
 def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
-                    rids) -> SeqStore:
+                    rids, mesh=None) -> SeqStore:
     """Stages 01-03: raw overlaps of the seeds, the seed-keyed sort and
     filter, and the correction itself.  Returns the corrected-read store.
     With several hosts each overlaps and corrects its share of the seeds
-    into per-host parts, and host 0 merges them and sorts."""
+    into per-host parts, and host 0 merges them and sorts; with a mesh
+    (parallel/mesh.Mesh) the three stages run the mesh path."""
     multi = hs.n_hosts > 1
     # ---- raw_align ------------------------------------------------------
     st = Stage(cfg.workdir, "01.raw_align")
@@ -354,6 +398,13 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
         seed_rids = rids[seed_mask]
         mine = seed_rids[hs.shard(len(seed_rids))]
         part_p = st.path(f"raw.ovl.h{hs.host_id}" if multi else "raw.ovl")
+        if mesh is not None and not os.path.exists(part_p + ".npz"):
+            from ..parallel.dist_pipeline import mesh_raw_align
+            with span("raw_align", reads=len(store), queries=len(mine)):
+                blk = retry("raw_align(mesh)", lambda: mesh_raw_align(
+                    store, seed_mask, mesh, k=cfg.raw_k,
+                    w=cfg.raw_w), cfg.rerun)
+            blk.save(part_p)
         if not os.path.exists(part_p + ".npz"):
             # intra-stage resume: queries run in fixed chunks, each durably
             # checkpointed — a crash mid-overlap redoes only the unfinished
@@ -422,9 +473,16 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
                      json.load(open(st.path("bl.json"))).items()}
     else:
         with span("sort_align", records=len(raw_ovl)):
-            res = sort_filter_overlaps(
-                raw_ovl, seed_mask, lens,
-                max_bin_cov=cfg.sort_max_depth)
+            if mesh is not None:
+                from ..parallel.dist_sort import distributed_sort_filter
+                res = distributed_sort_filter(
+                    raw_ovl, seed_mask, lens, mesh,
+                    max_bin_cov=cfg.sort_max_depth,
+                    is_hq=cfg.read_type == "hifi")
+            else:
+                res = sort_filter_overlaps(
+                    raw_ovl, seed_mask, lens,
+                    max_bin_cov=cfg.sort_max_depth)
         sorted_blk, blacklist = res.block, res.blacklist
         log.info("sort_align: %d records, %d blacklisted seeds",
                  len(sorted_blk), len(blacklist))
@@ -436,6 +494,13 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
     st = Stage(cfg.workdir, "03.seed_cns")
     if not st.done():
         part_p = st.path(f"cns.h{hs.host_id}" if multi else "cns")
+        if mesh is not None and not os.path.exists(part_p + ".npz"):
+            from ..parallel.dist_pipeline import mesh_correction
+            with span("seed_cns", records=len(sorted_blk)):
+                cns_part = retry("seed_cns(mesh)", lambda: mesh_correction(
+                    store, sorted_blk, blacklist, mesh, **correct_kw(cfg)),
+                    cfg.rerun)
+            cns_part.save(part_p)
         if not os.path.exists(part_p + ".npz"):
             with span("seed_cns", records=len(sorted_blk)):
                 cns_part = retry("seed_cns", lambda: run_correction(
@@ -444,15 +509,7 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
                         f"cns.progress.h{hs.host_id}.jsonl" if multi
                         else "cns.progress.jsonl"),
                     shard=(hs.n_hosts, hs.host_id) if multi else None,
-                    read_type=cfg.read_type_code,
-                    min_len_seed=cfg.min_len_seed,
-                    min_error_corrected_ratio=cfg.min_error_corrected_ratio,
-                    split=cfg.split_corrected, device=dev,
-                    fast=cfg.fast_correct,
-                    min_len_aln=cfg.min_len_aln,
-                    min_cov_seed=cfg.min_cov_seed,
-                    max_cov_aln=cfg.max_cov_aln, min_cov=cfg.min_cov_base,
-                    max_lq_length=cfg.max_lq_length), cfg.rerun)
+                    device=dev, **correct_kw(cfg)), cfg.rerun)
             cns_part.save(part_p)
         if multi:
             hs.barrier("seed_cns")
@@ -473,6 +530,17 @@ def _correct_stages(cfg: Config, dev, hs, store: SeqStore, seed_mask, lens,
              len(cns_store), cns_store.total_bases)
 
     return cns_store
+
+
+def correct_kw(cfg: Config) -> dict:
+    """Stage 03's options, as run_correction and mesh_correction take
+    them."""
+    return dict(read_type=cfg.read_type_code, min_len_seed=cfg.min_len_seed,
+                min_error_corrected_ratio=cfg.min_error_corrected_ratio,
+                split=cfg.split_corrected, fast=cfg.fast_correct,
+                min_len_aln=cfg.min_len_aln, min_cov_seed=cfg.min_cov_seed,
+                max_cov_aln=cfg.max_cov_aln, min_cov=cfg.min_cov_base,
+                max_lq_length=cfg.max_lq_length)
 
 
 def _merge_by_qname(paths) -> OvlBlock:

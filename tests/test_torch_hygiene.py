@@ -34,7 +34,7 @@ import chip_profile
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "nextdenovo_tpu" or m.startswith("nextdenovo_tpu."))
-assert len(mods) >= 29, mods
+assert len(mods) >= 34, mods
 print("BAD", bad)
 """
     r = _run(code)

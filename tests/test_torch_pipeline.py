@@ -89,18 +89,25 @@ def test_done_markers_and_resume(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("task,extra,what", [
-    ("all", "use_mesh = 2", "use_mesh"),
-    ("assemble", "use_mesh = 4", "use_mesh"),
-    ("correct", "use_mesh = 4", "use_mesh"),
+    ("all", "use_mesh = 2", "hifi"),
+    ("assemble", "use_mesh = 4", "hifi"),
+    ("correct", "use_mesh = 8", "hifi"),
 ])
 def test_unported_configurations_raise(tmp_path, task, extra, what):
+    """Raw HiFi reads on the mesh path are refused before any work: the
+    reference's mesh raw_align sketches at raw_k = 51, which its sketch
+    cannot pack (k <= 31)."""
     (tmp_path / "input.fofn").write_text("reads.fa\n")
     cfg = tload(write_correct_cfg(tmp_path, "x", GLEN, "wd_x", task=task,
-                                  extra=extra))
-    with pytest.raises(NotImplementedError, match="not ported yet") as ei:
+                                  extra=extra, read_type=what))
+    with pytest.raises(NotImplementedError,
+                       match="use_mesh > 1 with read_type = hifi") as ei:
         trun(cfg, device="cpu")
-    assert what.split()[0] in str(ei.value)
+    assert "k <= 31" in str(ei.value)
     assert not os.path.exists(tmp_path / "wd_x" / "00.db")
+    # corrected HiFi reads skip stage 01 and are admitted
+    cfg.input_type = "corrected"
+    assert trun_mod.check_ported(cfg) is None
 
 
 def test_hifi_and_corrected_input_raise(tmp_path):
@@ -127,18 +134,39 @@ def test_hifi_and_corrected_input_raise(tmp_path):
     assert not os.path.exists(tmp_path / "wd_h" / "00.db" / "reads.npz")
 
 
-@pytest.mark.parametrize("use_mesh,n_hosts", [(1, 1), (4, 2), (2, 3)])
-def test_use_mesh_admitted(runs, use_mesh, n_hosts):
-    """use_mesh = 1, and any use_mesh in a multi-host run, take the
-    single-device path, as in the reference; use_mesh = 1 runs (here from
-    the finished run's markers) to the same corrected reads."""
+@pytest.mark.parametrize("use_mesh,n_hosts", [(1, 1), (8, 1), (4, 2)])
+def test_use_mesh_admitted(runs, tmp_path, monkeypatch, use_mesh, n_hosts):
+    """use_mesh = 8 on one host takes the mesh path (stage 01 reaches
+    mesh_raw_align, not the single-device engine); use_mesh = 1, and any
+    use_mesh in a multi-host run, take the single-device path, as in the
+    reference; use_mesh = 1 runs (here from the finished run's markers) to
+    the same corrected reads."""
+    from nextdenovo_tpu_torch.parallel import dist_pipeline
     _, tcfg, _, got = runs
     cfg = tload(tcfg)
     cfg.use_mesh = use_mesh
     assert trun_mod.check_ported(cfg, n_hosts=n_hosts) is None
-    if n_hosts == 1:
+    assert trun_mod.mesh_shards(cfg, n_hosts) == \
+        (use_mesh if use_mesh > 1 and n_hosts == 1 else 0)
+    if use_mesh == 1:
         again = trun(cfg, device="cpu")
         assert np.array_equal(again["cns"].words, got["cns"].words)
+    elif n_hosts == 1:
+        class Taken(Exception):
+            pass
+
+        def taken(*a, **k):
+            raise Taken(k.get("k"))
+
+        def boom(*a, **k):
+            raise AssertionError("the single-device engine ran")
+        monkeypatch.setattr(dist_pipeline, "mesh_raw_align", taken)
+        for name in ("build_index", "find_overlaps"):
+            monkeypatch.setattr(trun_mod, name, boom)
+        cfg.workdir, cfg.rerun = str(tmp_path / "wd_mesh"), 0
+        with pytest.raises(Taken):
+            trun(cfg, device="cpu")
+        assert os.path.exists(tmp_path / "wd_mesh" / "00.db" / ".done")
 
 
 @pytest.mark.parametrize("read_type", ["clr", "hifi", "ccs"])
@@ -180,11 +208,12 @@ def test_cli_routes(tmp_path, capsys):
     assert trun_mod.check_ported(tload(write_correct_cfg(
         tmp_path, "a", GLEN, "wd_a", task="all"))) is None
     cfgp = write_correct_cfg(tmp_path, "c", GLEN, "wd_c", task="all",
-                             extra="use_mesh = 4")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+                             extra="use_mesh = 4", read_type="hifi")
+    refused = "use_mesh > 1 with read_type = hifi"
+    with pytest.raises(NotImplementedError, match=refused):
         main(["run", cfgp, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match=refused):
         main([cfgp, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(NotImplementedError, match=refused):
         main(["launch", cfgp, "--device", "cpu"])
     assert not os.path.exists(tmp_path / "wd_c")
