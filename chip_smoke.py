@@ -30,10 +30,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              run of words in every other pair (at least one pair must end
              with ok = 0), and on random decisions whose walks step out of
              the band inside a word
+  engine     the minimizer engine's three kernels (engine_anchor,
+             vote_corridor, chain_emit) against their plain versions on the
+             card, exact equality of every output: engine_anchor on a
+             synthetic index (hashes of more than max_occ entries, filter
+             rows, self hits, the pair-once gate on and off, a read in three
+             rows, max_occ 1, no minimizer) and on one 16-row batch of the
+             main path's stage 01 (the index of its 3720 reads), then the
+             two vote kernels on those anchors at top_k 1 and 4; the vote
+             kernels also on one anchor, groups of one anchor, tied bins,
+             groups whose bins are all blanked after round 1, random sets,
+             one group of 300k anchors and one bin of 100k; each set's whole
+             _vote_emit on the card equal to the CPU's (records, n_out,
+             overflow; one set's cap_out must truncate)
   overlaps   find_overlaps on fixed batches of reads gives identical
-             records on the card and on the CPU: ONT reads at k = 17,
-             w = 10; HiFi reads (one longer than CHUNK_LP) at k = 51,
-             w = 51, the index's arrays identical too
+             records on the card (the engine kernels launched) and on the
+             CPU: ONT reads at k = 17, w = 10; HiFi reads (one longer than
+             CHUNK_LP) at k = 51, w = 51, the index's arrays identical too
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
              the CPU, with the launch counters set to 0 just before
   ext_path   input_type = corrected, task = assemble (stages 00, 04-06)
@@ -45,6 +58,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   main_path  task = all (stages 00-06) through the package's CLI entry on a
              simulated genome at 30x, with the launch counters set to 0
              just before and read just after; checks the markers, the
+             engine kernels launched in stages 01, 04 and 06, the
              share of corrected seeds, the identity of corrected reads,
              and the contigs against the simulated genome
   multihost_path
@@ -85,14 +99,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              wave_fast_fwd at 8, 64, 256 and 640 pairs of 11000-12288
              columns (ms, cycles an anti-diagonal of the longest pair), every
              pair equal to the same pair in launches of 64, and wave_fast_tb
-             at the same sizes on tb/base from wave_fast_fwd
+             at the same sizes on tb/base from wave_fast_fwd; the engine
+             kernels at the main path's batch, and one whole _match_block
+             call with the kernels against the same call with the plain
+             versions on the card, and a host sync's cost
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
 
 Without a CUDA device it exits non-zero and prints no result.  The last
 line of stdout is {"ok": true, "device": {...}}; the line before the card
-line holds {"kernels": [...]}: four kernels' launches are read from the
+line holds {"kernels": [...]}: seven kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run; `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
@@ -144,6 +161,12 @@ KERNEL_INFO = {
                           replaces="nextdenovo_tpu/ops/align.py:286"),
     "wave_fast_tb": dict(source="nextdenovo_tpu_torch/csrc/wave_fast.cu",
                          replaces="nextdenovo_tpu/ops/align.py:765"),
+    "engine_anchor": dict(source="nextdenovo_tpu_torch/csrc/engine.cu",
+                          replaces="nextdenovo_tpu/overlap/engine.py:299"),
+    "vote_corridor": dict(source="nextdenovo_tpu_torch/csrc/engine.cu",
+                          replaces="nextdenovo_tpu/overlap/engine.py:372"),
+    "chain_emit": dict(source="nextdenovo_tpu_torch/csrc/engine.cu",
+                       replaces="nextdenovo_tpu/overlap/engine.py:372"),
 }
 # the path a kernel's launches are read from, where it is not the task = all
 # run
@@ -736,6 +759,365 @@ def compare_extend_results(qs, ts, dev, tag):
 
 
 # --------------------------------------------------------------------------
+# the engine's kernels (csrc/engine.cu)
+
+ENGINE_KERNELS = ("engine_anchor", "vote_corridor", "chain_emit")
+# the main path's stage 01 (pipeline/run.py): k, w of read_type = ont, the
+# index's max_occ, the queries' max_occ, min_cnt, min_span, top_k; its seed
+# cutoff on the 1 Mb / 30x reads (PERF.md section 4)
+STAGE01 = dict(k=15, w=5, index_max_occ=64, max_occ=16, min_cnt=4,
+               min_span=500, top_k=4)
+SEED_CUTOFF = 6027
+
+
+def anchor_set(rng, n_q, n_t, per, spurious=0.0, spread=300, qlen=20000):
+    """Anchors (qr, t_rid, t_pos, rel, qpos), int64 numpy: for each of n_q
+    queries and n_t targets one true diagonal on a random strand with `per`
+    anchors along it (+-spread of noise), and `spurious` x as many anchors
+    at random; in a random order."""
+    import numpy as np
+    n = n_q * n_t * per
+    qr = np.repeat(np.arange(n_q), n_t * per)
+    t_rid = np.tile(np.repeat(np.arange(n_q, n_q + n_t), per), n_q)
+    rel = np.repeat(rng.integers(0, 2, n_q * n_t), per)
+    off = np.repeat(rng.integers(-qlen, qlen, n_q * n_t), per)
+    qpos = rng.integers(0, qlen, n)
+    t_pos = np.abs(np.where(rel == 0, qpos - off, off - qpos)
+                   + rng.integers(-spread, spread + 1, n))
+    m = int(n * spurious)
+    cols = [np.concatenate([a, b]) for a, b in zip(
+        (qr, t_rid, t_pos, rel, qpos),
+        (rng.integers(0, n_q, m), rng.integers(n_q, n_q + n_t, m),
+         rng.integers(0, qlen, m), rng.integers(0, 2, m),
+         rng.integers(0, qlen, m)))]
+    p = rng.permutation(len(cols[0]))
+    return tuple(c[p].astype(np.int64) for c in cols)
+
+
+def engine_vote_sets(rng):
+    """(tag, anchors, top_k, cap_out): the degenerate cases (one anchor,
+    groups of one anchor, tied bin counts, every bin of a group blanked
+    after round 1, top_k 1 and 4, a cap_out that truncates), random sets,
+    and groups of many bins and of one huge bin."""
+    import numpy as np
+    one = tuple(np.array([v], np.int64) for v in (0, 1, 5000, 0, 5300))
+    # groups of one anchor among groups of eight
+    single = anchor_set(rng, 3, 40, 1)
+    eight = anchor_set(rng, 3, 10, 8, spread=20)
+    singles = tuple(np.concatenate([a, b]) for a, b in zip(single, eight))
+    # two bins of 6 anchors each per group, far apart: the first one wins
+    qpos = np.concatenate([np.arange(6) * 600, np.arange(6) * 600 + 100])
+    t_pos = np.concatenate([qpos[:6] + 1000, qpos[6:] + 9000])
+    ties = (np.zeros(12, np.int64), np.ones(12, np.int64), t_pos,
+            np.zeros(12, np.int64), qpos)
+    # every anchor of a group within 2 bins of the best: rounds 2-4 find -1
+    qpos = np.arange(40, dtype=np.int64) * 250
+    blank = (np.zeros(40, np.int64), np.full(40, 3, np.int64),
+             qpos + 700 + (np.arange(40) % 3) * 256, np.zeros(40, np.int64),
+             qpos)
+    sets = [("one anchor", one, 4, 64), ("one-anchor groups", singles, 4, 64),
+            ("tied bins", ties, 1, 64), ("tied bins", ties, 4, 64),
+            ("all blanked", blank, 4, 64)]
+    rnd = anchor_set(rng, 16, 200, 12, spurious=1.0)
+    sets += [("random 16 x 200", rnd, 1, 4352), ("random 16 x 200", rnd, 4, 4352),
+             ("random, cap_out truncates", rnd, 4, 100)]
+    # one (query, target) group of 300k anchors over ~5000 bins, and one of
+    # 100k anchors in a single bin
+    n = 300_000
+    qpos = rng.integers(0, 1_000_000, n)
+    wide = (np.zeros(n, np.int64), np.ones(n, np.int64),
+            rng.integers(0, 1_000_000, n), np.zeros(n, np.int64), qpos)
+    qpos = rng.integers(0, 1_000_000, 100_000)
+    deep = (np.zeros(len(qpos), np.int64), np.ones(len(qpos), np.int64),
+            qpos + 40, np.zeros(len(qpos), np.int64), qpos)
+    sets += [("one group of 300k anchors", wide, 4, 64),
+             ("one bin of 100k anchors", deep, 4, 64)]
+    return sets
+
+
+def engine_anchor_sets(rng):
+    """(tag, args of engine_anchor as numpy, max_occ): a synthetic index
+    with hashes of more than max_occ entries, filter rows (0xFFFFFFFF, rid
+    -1) at the end, self hits, the pair-once gate on half the reads, a
+    minimizer of hash 0xFFFFFFFF and absent hashes; two rows of one read
+    (halo chunks); no minimizer at all."""
+    import numpy as np
+    n_reads, H = 50, 4000
+    h = np.sort(rng.integers(0, 600, H - 40)).astype(np.int64) * 7
+    h = np.concatenate([h, np.full(40, 0xFFFFFFFF, np.int64)])
+    irid = np.concatenate([rng.integers(0, n_reads, H - 40),
+                           np.full(40, -1)]).astype(np.int32)
+    ipos = (rng.integers(0, 20000, H) | (rng.integers(0, 2, H) << 30)
+            ).astype(np.int32)
+    M, R = 3000, 6
+    qh = rng.integers(0, 650, M).astype(np.int64) * 7 + (rng.random(M) < 0.1)
+    qh[:5] = 0xFFFFFFFF
+    rid_base = np.array([3, 3, 17, 20, 41, 3], np.int64)   # read 3 thrice
+    pos_base = np.array([0, 15000, 0, 0, 0, 30000], np.int64)
+    qmask = (rng.random(n_reads) < 0.5).astype(np.int8)
+    args = (rng.integers(0, R, M).astype(np.int64),
+            rng.integers(0, 16384, M).astype(np.int64), qh,
+            rng.integers(0, 2, M).astype(np.int64), rid_base, pos_base,
+            qmask, h, irid, ipos)
+    empty = tuple(np.zeros(0, np.int64) for _ in range(4)) + args[4:]
+    return [("synthetic index, max_occ 16", args, 16),
+            ("synthetic index, max_occ 1", args, 1),
+            ("synthetic index, no pair-once gate",
+             args[:6] + (np.zeros(n_reads, np.int8),) + args[7:], 16),
+            ("no minimizer", empty, 16)]
+
+
+def main_batch(dev):
+    """_match_block's inputs for one 16-row batch of stage 01 on the main
+    path's reads: the index of all 3720 reads at k = 15, w = 5 on the card,
+    16 seeds from the middle of the seeds' length order, the seeds as the
+    query mask."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    genome = simulate_genome(GENOME_SIZE, seed=1)
+    sim = simulate_reads(genome, coverage=COVERAGE, mean_len=MEAN_LEN,
+                         error_rate=ERROR_RATE, seed=2)
+    store = SeqStore.from_codes(sim.reads)
+    lens = np.asarray(store.length, np.int64)
+    idx = E.build_index(store, np.arange(len(store)), k=s1["k"], w=s1["w"],
+                        max_occ=s1["index_max_occ"], device=dev)
+    seeds = np.nonzero(lens >= SEED_CUTOFF)[0]
+    order = seeds[np.argsort(lens[seeds], kind="stable")]
+    mid = len(order) // 2
+    rows = E._chunk_rows(order[mid : mid + 16], lens, s1["k"], s1["w"])
+    m = E._sketch_rows(store, rows, s1["k"], s1["w"],
+                       2 * 16 * E.CHUNK_LP // s1["w"] + 1024, dev)
+    qmask = np.zeros(len(lens), np.int8)
+    qmask[seeds] = 1
+    to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
+    args = (m.rid, m.pos, m.hash, m.strand, to([r[0] for r in rows]),
+            to([r[1] for r in rows]), to(qmask), idx.h, idx.rid, idx.pos)
+    return dict(args=args, idx=idx, rows=len(rows),
+                read_lens=lens[order[mid : mid + 16]])
+
+
+def _engine_bounds(name, ins, outs, top_k):
+    """(bytes, int32-rate operations) the kernel's work needs on these
+    tensors: each input read once and each output written once, engine_anchor
+    counting the index entries its occurrences examine (lo_cnt's count) and
+    ~2 log2(H) probes of 8 B a minimizer no further."""
+    import math
+    if name == "engine_anchor":
+        M, R, H = ins[0].shape[0], ins[4].shape[0], ins[7].shape[0]
+        A = outs[0].shape[0]
+        occ = ins[-1]                     # occurrences examined
+        probes = 2 * max(1, math.ceil(math.log2(max(H, 2))))
+        byt = M * 32 + R * 16 + occ * 9 + A * 40
+        ops = M * probes * 4 + occ * 12
+    elif name == "vote_corridor":
+        A = ins[0].shape[0]
+        byt = A * (32 + 16)
+        ops = A * (top_k * 14 + 8)
+    else:
+        A = ins[0].shape[0]
+        byt = A * (32 + 65)
+        ops = A * 40
+    return byt, ops
+
+
+def compare_engine_kernels(dev, tag, anchors=None, batch=None, max_occ=16,
+                           top_k=4, reps=0, diag_shift=8):
+    """engine_anchor (given a batch: its tensors as numpy or on the card),
+    vote_corridor and chain_emit against their plain versions on the card,
+    each on the tensors _match_block hands it; every output exactly equal.
+    Returns {kernel: dict(exact, max_abs_err[, ms, plain_ms, bound...])}
+    and the kernels' anchors."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    res = {}
+    to = lambda a: a if torch.is_tensor(a) else torch.from_numpy(a).to(dev)
+    if batch is not None:
+        args = tuple(to(a) for a in batch)
+        ak, ap, t = _run(lambda: E.engine_anchor(*args, max_occ=max_occ),
+                         lambda: E.engine_anchor_plain(*args, max_occ=max_occ),
+                         reps)
+        lo = torch.searchsorted(args[7], args[2])
+        occ = int(torch.clamp(torch.searchsorted(args[7], args[2], right=True)
+                              - lo, max=max_occ).sum())
+        byt, ops = _engine_bounds("engine_anchor", args + (occ,), ak, top_k)
+        _record(res, tag, "engine_anchor", ak, ap, dict(
+            t, shape=f"M={args[0].shape[0]} rows={args[4].shape[0]} "
+                     f"H={args[7].shape[0]} A={ak[0].shape[0]}",
+            **_bound(byt, ops)))
+        anchors = ak
+    anchors = tuple(to(a) for a in anchors)
+    A = anchors[0].shape[0]
+    if A == 0:
+        return res, anchors
+    vi = E._vote_inputs(*anchors, diag_shift=diag_shift)
+    vk, vp, t = _run(
+        lambda: E.vote_corridor(*vi[:5], diag_shift=diag_shift, top_k=top_k),
+        lambda: E.vote_corridor_plain(*vi[:5], diag_shift=diag_shift,
+                                      top_k=top_k), reps)
+    G = int((E.segment_starts(vi[0]) | E.segment_starts(vi[1])).sum())
+    byt, ops = _engine_bounds("vote_corridor", vi, vk, top_k)
+    _record(res, tag, "vote_corridor", vk, vp, dict(
+        t, shape=f"A={A} groups={G} top_k={top_k}", **_bound(byt, ops)))
+    ci = E._chain_inputs(vi[0], vk[0], vk[1], vi[5])
+    kw = dict(k=s1["k"], top_k=top_k, min_cnt=s1["min_cnt"],
+              min_span=s1["min_span"])
+    ck, cp, t = _run(lambda: E.chain_emit(*ci, **kw),
+                     lambda: E.chain_emit_plain(*ci, **kw), reps)
+    byt, ops = _engine_bounds("chain_emit", ci, ck, top_k)
+    _record(res, tag, "chain_emit", ck, cp, dict(
+        t, shape=f"A={A} top_k={top_k} emitted={int(ck[0].sum())}",
+        **_bound(byt, ops)))
+    return res, anchors
+
+
+def _same_vote_emit(a, b, tag):
+    """Two _vote_emit results: the same n_out, overflow and records."""
+    import torch
+    (ra, na, oa), (rb, nb, ob) = a, b
+    if (na, oa) != (nb, ob):
+        raise RuntimeError(f"_vote_emit on '{tag}': n_out, overflow "
+                           f"{(na, oa)} on the card, {(nb, ob)} on the CPU")
+    for f in ra:
+        if not torch.equal(ra[f].cpu(), rb[f].cpu()):
+            raise RuntimeError(f"_vote_emit on '{tag}': field {f} differs "
+                               "between the card and the CPU")
+
+
+def phase_engine(dev):
+    """The engine's three kernels against their plain versions on the card
+    (exact equality of every output), on engine_anchor_sets and the main
+    path's batch (then vote_corridor and chain_emit on their anchors) and
+    on engine_vote_sets at top_k 1 and 4; for each set also the whole
+    _vote_emit, card (kernels) against CPU (plain versions): the same
+    records, n_out and overflow.  Returns the main path's batch."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    rng = np.random.default_rng(19)
+    kw = dict(k=s1["k"], diag_shift=8, min_cnt=s1["min_cnt"],
+              min_span=s1["min_span"])
+
+    def vote_both(tag, anchors, top_k, cap_out):
+        card = E._vote_emit(*anchors, cap_out=cap_out, top_k=top_k, **kw)
+        cpu = E._vote_emit(*(a.cpu() for a in anchors), cap_out=cap_out,
+                           top_k=top_k, **kw)
+        _same_vote_emit(card, cpu, tag)
+        return card[1], card[2]
+
+    t0 = time.time()
+    mb = main_batch(dev)
+    log(f"[engine] the main path's batch: {mb['rows']} rows, reads of "
+        f"{int(mb['read_lens'].min())}-{int(mb['read_lens'].max())} bases, "
+        f"index {mb['idx'].h.shape[0]} entries ({time.time() - t0:.1f}s)")
+    for tag, args, max_occ in engine_anchor_sets(rng) + [
+            ("main-path batch", mb["args"], s1["max_occ"])]:
+        for top_k in (1, 4):
+            r, anchors = compare_engine_kernels(dev, tag, batch=args,
+                                                max_occ=max_occ, top_k=top_k)
+            n, over = vote_both(tag, anchors, top_k, 256 * 16 + 256)
+            log(f"[engine] {tag}, top_k {top_k}: " + ", ".join(
+                f"{k_} exact={v['exact']} ({v['shape']})"
+                for k_, v in r.items()) + f"; _vote_emit card == cpu, "
+                f"{n} records, overflow {over}")
+    for tag, anchors, top_k, cap_out in engine_vote_sets(rng):
+        r, anchors = compare_engine_kernels(dev, tag, anchors=anchors,
+                                            top_k=top_k)
+        n, over = vote_both(tag, anchors, top_k, cap_out)
+        log(f"[engine] {tag}, top_k {top_k}: " + ", ".join(
+            f"{k_} exact={v['exact']}" for k_, v in r.items())
+            + f"; _vote_emit card == cpu, {n} records, overflow {over}")
+        if "truncates" in tag and over == 0:
+            raise RuntimeError(f"'{tag}': cap_out {cap_out} left no "
+                               "overflow")
+    return mb
+
+
+class plain_engine:
+    """Inside the block _match_block and _vote_emit call the kernels' plain
+    versions, also on CUDA tensors (for timing the two against each other
+    on the card)."""
+
+    def __enter__(self):
+        from nextdenovo_tpu_torch.overlap import engine as E
+        self.saved = {n: getattr(E, n) for n in ENGINE_KERNELS}
+        for n in ENGINE_KERNELS:
+            setattr(E, n, getattr(E, n + "_plain"))
+
+    def __exit__(self, *exc):
+        from nextdenovo_tpu_torch.overlap import engine as E
+        for n, f in self.saved.items():
+            setattr(E, n, f)
+
+
+def engine_timing(dev, mb):
+    """The three kernels at the main path's batch shape (top_k 4) against
+    their plain versions, then one whole _match_block call with the kernels
+    against the same call with the plain versions on the card (host clock,
+    in turns plain, kernels, kernels, plain, 5 calls each), and what a
+    host sync costs."""
+    import torch
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    r, _ = compare_engine_kernels(dev, "main-path batch (timing)",
+                                  batch=mb["args"], max_occ=s1["max_occ"],
+                                  top_k=s1["top_k"], reps=5)
+    for name, v in r.items():
+        log(f"[timing] {name}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
+            f"ms), bound {v['bound_ms']:.4f} ms by {v['bound_by']}, "
+            f"{v['shape']}")
+    a = mb["args"]
+    call = lambda: E._match_block(
+        *a[:7], mb["idx"], k=s1["k"], max_occ=s1["max_occ"], diag_shift=8,
+        min_cnt=s1["min_cnt"], min_span=s1["min_span"], cap_out=256 * 16 + 256,
+        top_k=s1["top_k"])
+
+    def wall(n=5):
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, out
+
+    times = {"kernels": [], "plain": []}
+    outs = {}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        if which == "plain":
+            with plain_engine():
+                ms, outs[which] = wall()
+        else:
+            ms, outs[which] = wall()
+        times[which].append(ms)
+    _same_vote_emit(outs["kernels"], outs["plain"], "main-path batch")
+    # a sync's round trip on an idle device; a _match_block call makes four
+    # (engine_anchor's count, the two group-start nonzeros, the hits) and
+    # find_overlaps a fifth (the records' copy to the host)
+    x = torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        int(x[0])
+    sync_us = (time.perf_counter() - t0) * 1e6 / 200
+    km, pm = min(times["kernels"]), min(times["plain"])
+    log(f"[timing] _match_block, the main path's batch ({outs['kernels'][1]} "
+        f"records): kernels {km:.3f} ms ({times['kernels']}), plain versions "
+        f"on the card {pm:.3f} ms ({times['plain']}); x{pm / km:.1f}")
+    log(f"[timing] host syncs: 5 a batch (engine_anchor's count, two group "
+        f"starts, the hits, the records' copy), {sync_us:.1f} us each on an "
+        f"idle device: {5 * sync_us * 367 / 1e3:.1f} ms over stage 01's 367 "
+        f"batches")
+    return r, dict(match_block_ms=km, match_block_plain_ms=pm,
+                   sync_us=sync_us)
+
+
+# --------------------------------------------------------------------------
 # phases
 
 
@@ -968,6 +1350,7 @@ def phase_overlaps(dev):
     import numpy as np
     from nextdenovo_tpu_torch.io.seqstore import SeqStore
     from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.overlap.engine import (CHUNK_LP, build_index,
                                                      find_overlaps)
     g = simulate_genome(60_000, seed=21)
@@ -976,6 +1359,7 @@ def phase_overlaps(dev):
     store = SeqStore.from_codes(sim.reads)
     rids = np.arange(len(store))
     blocks = {}
+    _build.reset_launches()
     for d in (dev, "cpu"):
         t0 = time.time()
         idx = build_index(store, rids, k=17, w=10, max_occ=64, device=d)
@@ -987,6 +1371,11 @@ def phase_overlaps(dev):
     a = blocks[str(dev)]
     _same_records(a, blocks["cpu"], "the ONT batch (genome seed 21, reads "
                   "seed 22)")
+    launched = {k_: _build.LAUNCHES[k_] for k_ in ENGINE_KERNELS}
+    log(f"[overlaps] the card's engine kernels: {json.dumps(launched)}")
+    if not all(launched.values()):
+        raise RuntimeError("find_overlaps on the card launched not every "
+                           f"engine kernel: {launched}")
     log(f"[overlaps] card == cpu: {len(a)} records, fields "
         f"{sorted(a.data)} identical")
 
@@ -1193,6 +1582,7 @@ def phase_main_path(dev, genome_size, workdir):
     by_name = {}
     for s_ in tracer.spans:
         by_name.setdefault(s_.name, []).append(s_)
+    _engine_report("main_path", marks, by_name)
     for name in ("cns_align", "ctg_graph", "ctg_align", "ctg_cns"):
         if name not in by_name:
             raise RuntimeError(f"span {name} was not recorded")
@@ -1286,6 +1676,27 @@ def _stage_report(tag, tracer, t0, wd):
             f"launches so far {json.dumps(marks[st].attrs)}")
         prev_t = marks[st].t0
     return marks
+
+
+def _engine_report(tag, marks, by_name):
+    """The engine's kernels launched in each stage that runs the engine
+    (01, 04 and 06; find_overlaps' batches), and engine/match's wall in
+    each; fails where a kernel was launched no time."""
+    prev = {"01.raw_align": "00.db", "04.cns_align": "03.seed_cns",
+            "06.ctg_cns": "05.ctg_graph"}
+    rows = []
+    for st, before in prev.items():
+        n = {k_: int(marks[st].attrs[k_]) - int(marks[before].attrs[k_])
+             for k_ in ENGINE_KERNELS}
+        t_a, t_b = marks[before].t0, marks[st].t0
+        em = [s_ for s_ in by_name.get("engine/match", [])
+              if t_a <= s_.t0 < t_b]
+        rows.append(f"{st}: {json.dumps(n)}, engine/match "
+                    f"{sum(s_.wall for s_ in em):.2f}s over {len(em)} batches")
+        for k_, v in n.items():
+            if v < 1:
+                raise RuntimeError(f"{tag}: stage {st} launched no {k_}")
+    log(f"[{tag}] engine kernels by stage: " + "; ".join(rows))
 
 
 def _check_identity(tag, dev, wd, cns, sim, genome, limit, window=None):
@@ -1417,6 +1828,7 @@ def phase_hifi_path(dev, genome_size, workdir):
     by_name = {}
     for s_ in tracer.spans:
         by_name.setdefault(s_.name, []).append(s_)
+    _engine_report("hifi_path", marks, by_name)
     bi = by_name["raw_align/build_index"][0]
     kw = (int(bi.attrs["k"]), int(bi.attrs["w"]))
     # spans of stage 01 only: the engine also runs in stages 04 and 06
@@ -1495,7 +1907,7 @@ def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
     host's launches over the run."""
     import signal
     names = ("myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
-             "wave_fast_fwd", "wave_fast_tb")
+             "wave_fast_fwd", "wave_fast_tb") + ENGINE_KERNELS
     cfg_p = os.path.join(workdir, "run_mh.cfg")
     with open(cfg_p, "w") as fh:
         fh.write("[General]\ntask = all\ninput_type = raw\n"
@@ -1543,7 +1955,7 @@ def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
     log(f"[multihost_path] launch --hosts {n_hosts} --submit local: wall "
         f"{wall:.1f}s (both host processes, from the launcher's start); "
         "cns.fasta and nd.asm.fasta byte-identical to main_path's")
-    per_host = []
+    per_host, stage_rows = [], []
     for k in range(n_hosts):
         rows = _host_rows(wd, k)
         prev_t, prev = t0, dict.fromkeys(names, 0)
@@ -1559,7 +1971,15 @@ def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
             f"{json.dumps(in_stage)}")
         if in_stage["03.seed_cns"].get("myers_fwd", 0) < 1:
             raise RuntimeError(f"host {k} launched no myers_fwd in stage 03")
+        for n in ENGINE_KERNELS:
+            if in_stage["01.raw_align"].get(n, 0) < 1:
+                raise RuntimeError(f"host {k} launched no {n} in stage 01")
         per_host.append({n: rows["06.ctg_cns"][n] for n in names})
+        stage_rows.append(in_stage)
+    for st in ("04.cns_align", "06.ctg_cns"):
+        for n in ENGINE_KERNELS:
+            if sum(r[st].get(n, 0) for r in stage_rows) < 1:
+                raise RuntimeError(f"no host launched {n} in {st}")
     log(f"[multihost_path] launches per host: {json.dumps(per_host)}")
     return per_host
 
@@ -1646,6 +2066,11 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
     for st in ("03.seed_cns", "04.cns_align", "06.ctg_cns"):
         if in_stage[st].get("myers_fwd", 0) < 1:
             raise RuntimeError(f"the mesh run launched no myers_fwd in {st}")
+    # the mesh overlap step votes with _vote_emit (its lookup is its own)
+    for st in ("01.raw_align", "04.cns_align", "06.ctg_cns"):
+        for n in ("vote_corridor", "chain_emit"):
+            if in_stage[st].get(n, 0) < 1:
+                raise RuntimeError(f"the mesh run launched no {n} in {st}")
     for rel in ("01.raw_align/raw.ovl.npz", "02.sort_align/sorted.ovl.npz"):
         diff = _first_diff(os.path.join(wd_main, rel), os.path.join(wd, rel))
         if diff:
@@ -1992,7 +2417,7 @@ def wave_fast_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
     torch.cuda.empty_cache()
 
 
-def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
+def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn, batch):
     """Kernels at their path's shape: a Myers launch of 640 pairs of up to
     12288 columns (the small end of the main path's launches; myers_sweep
     covers the large end), the two wavefront pairs on a retry batch, the
@@ -2033,6 +2458,8 @@ def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn):
         f"native host loop takes {host_ms:.0f} ms for them (timed on "
         f"{n_host} pairs, one core)")
     out.update(r)
+    r, _ = engine_timing(dev, batch)
+    out.update(r)
     return out
 
 
@@ -2047,6 +2474,8 @@ def main() -> int:
     phase_build()
     with watchdog(420, "the kernel phase"):
         phase_kernels(dev)
+    with watchdog(300, "the engine phase"):
+        batch = phase_engine(dev)
     phase_overlaps(dev)
     fast_launches = phase_fast_path(dev)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ext_")
@@ -2072,7 +2501,7 @@ def main() -> int:
         launches[k] = (fast_launches if path == FAST_PATH else ext_launches)[k]
     with watchdog(420, "the timing phase"):
         timing = phase_timing(dev, facts["retry_pairs"], ext_pairs,
-                              ext_mean_mn)
+                              ext_mean_mn, batch)
     kernels = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]

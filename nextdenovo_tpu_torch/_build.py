@@ -37,7 +37,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 # launches per kernel wrapper: a wrapper adds one where it launches its
 # CUDA kernel and nowhere else, so a run can show which kernels it used
 LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
-            "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0}
+            "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0,
+            "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0}
 
 _lock = threading.Lock()
 _kernels = None
@@ -175,6 +176,14 @@ def kernels() -> ctypes.CDLL:
                                           ci, ci, ci, ci, vp]
         lib.ndt_wave_fast_tb.restype = ci
         lib.ndt_wave_fast_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+        ll = ctypes.c_longlong
+        lib.ndt_engine_anchor.restype = ci
+        lib.ndt_engine_anchor.argtypes = [vp] * 13 + [ci, ll, ll, ci, ci, vp]
+        lib.ndt_vote_corridor.restype = ci
+        lib.ndt_vote_corridor.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+        lib.ndt_chain_emit.restype = ci
+        lib.ndt_chain_emit.argtypes = [vp] * 7 + [ll, ci, ci, ci, ci, ci,
+                                                  ctypes.c_float, vp]
         lib.ndt_error_string.restype = ctypes.c_char_p
         lib.ndt_error_string.argtypes = [ci]
         _kernels = lib

@@ -1,110 +1,65 @@
 """Segmented-array utilities (PyTorch).
 
 Counterpart of nextdenovo_tpu/ops/segment.py: arrays sorted by a segment
-key, with per-segment reductions done as O(log n) vectorized scans.  The
-scan is a plain doubling (Hillis-Steele) pass over dim 0, so it runs on
-any device with ordinary tensor ops.  `values` may be a tensor or a nested
-tuple/list/dict of equally-shaped tensors.
+key, with per-segment reductions broadcast back to every element.  Each
+reduction runs on segment ids (`cumsum(starts) - 1`): one `index_add_` or
+`scatter_reduce` over the segments, then a gather back, a handful of tensor
+ops whatever the length.  The overlap engine's plain versions use them
+(the CPU path; on the card the engine runs its kernels instead).
 """
 from __future__ import annotations
 
 import torch
 
 
-def _tree_map(fn, *trees):
-    t0 = trees[0]
-    if isinstance(t0, (tuple, list)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    return fn(*trees)
-
-
-def _tree_len(tree) -> int:
-    if isinstance(tree, (tuple, list)):
-        return _tree_len(tree[0])
-    if isinstance(tree, dict):
-        return _tree_len(next(iter(tree.values())))
-    return tree.shape[0]
-
-
-def _associative_scan(comb, elems):
-    """Inclusive scan of an associative `comb` over dim 0."""
-    n = _tree_len(elems)
-    k = 1
-    while k < n:
-        left = _tree_map(lambda x: x[:-k], elems)
-        right = _tree_map(lambda x: x[k:], elems)
-        merged = comb(left, right)
-        elems = _tree_map(lambda x, t: torch.cat([x[:k], t]), elems, merged)
-        k *= 2
-    return elems
-
-
 def segment_starts(keys: torch.Tensor) -> torch.Tensor:
     """Bool mask: True where a new segment begins (keys must be sorted)."""
-    first = torch.ones((1,), dtype=torch.bool, device=keys.device)
+    first = torch.ones((min(1, keys.shape[0]),), dtype=torch.bool,
+                       device=keys.device)
     return torch.cat([first, keys[1:] != keys[:-1]])
 
 
-def segment_scan(values, starts, combine):
-    """Inclusive within-segment scan.  `combine(a, b)` must be associative.
-    values may be a pytree of equally-shaped tensors."""
-    def comb(a, b):
-        a_start, a_val = a
-        b_start, b_val = b
-        new_val = _tree_map(
-            lambda bv, cv: torch.where(b_start, bv, cv), b_val,
-            combine(a_val, b_val))
-        return (a_start | b_start, new_val)
-
-    _, out = _associative_scan(comb, (starts, values))
-    return out
+def segment_ids(starts: torch.Tensor):
+    """(segment id of each element, number of segments)."""
+    sid = torch.cumsum(starts.to(torch.int64), 0) - 1
+    return sid, (int(sid[-1]) + 1 if sid.shape[0] else 0)
 
 
-def segment_scan_rev(values, starts, combine):
-    """Inclusive within-segment scan from the right (suffix scan)."""
-    ends = torch.cat([starts[1:], torch.ones((1,), dtype=torch.bool,
-                                             device=starts.device)])
-    flip = lambda t: _tree_map(lambda x: torch.flip(x, dims=(0,)), t)
-    out = segment_scan(flip(values), torch.flip(ends, dims=(0,)), combine)
-    return flip(out)
-
-
-def segment_broadcast_last(values, starts):
-    """Give every element its segment's LAST value (e.g. a total computed by
-    an inclusive forward scan).  Implemented as a reverse segmented scan
-    with the (associative) "keep the accumulated value" combiner, which
-    propagates each reversed segment's first element — i.e. the original
-    segment's last — to the whole segment."""
-    return segment_scan_rev(values, starts, lambda a, b: a)
+def _reduce(values, starts, op):
+    sid, n = segment_ids(starts)
+    out = torch.zeros(n, dtype=values.dtype, device=values.device)
+    if op == "sum":
+        out.index_add_(0, sid, values)
+    else:
+        out.scatter_reduce_(0, sid, values, op, include_self=False)
+    return out[sid]
 
 
 def segment_sum(values, starts):
-    tot = segment_scan(values, starts, lambda a, b: a + b)
-    return segment_broadcast_last(tot, starts)
+    return _reduce(values, starts, "sum")
 
 
 def segment_max(values, starts):
-    m = segment_scan(values, starts, torch.maximum)
-    return segment_broadcast_last(m, starts)
+    return _reduce(values, starts, "amax")
 
 
 def segment_min(values, starts):
-    m = segment_scan(values, starts, torch.minimum)
-    return segment_broadcast_last(m, starts)
+    return _reduce(values, starts, "amin")
+
+
+def segment_broadcast_last(values, starts):
+    """Give every element its segment's LAST value."""
+    n = values.shape[0]
+    idx = torch.arange(n, device=values.device)
+    return values[_reduce(idx, starts, "amax")]
 
 
 def segment_argmax(scores, payload, starts):
     """Per segment, the payload of the max-score element (first on ties),
-    broadcast to every element of the segment."""
-    def comb(a, b):
-        sa, pa = a
-        sb, pb = b
-        take_b = sb > sa
-        return (torch.maximum(sa, sb),
-                _tree_map(lambda x, y: torch.where(take_b, y, x), pa, pb))
-
-    best = segment_scan((scores, payload), starts, comb)
-    best_score, best_payload = segment_broadcast_last(best, starts)
-    return best_score, best_payload
+    broadcast to every element of the segment: the max of the scores,
+    then the least index among the elements that reach it."""
+    best = segment_max(scores, starts)
+    n = scores.shape[0]
+    idx = torch.arange(n, device=scores.device)
+    first = segment_min(torch.where(scores == best, idx, n), starts)
+    return best, payload[first]

@@ -6,10 +6,25 @@ Counterpart of nextdenovo_tpu/overlap/engine.py.  Design:
   * the index is a hash-sorted flat table queried with vectorized binary
     search instead of a bucketed hash table;
   * candidate overlaps come from diagonal-band voting over anchors (sorted
-    once, then segmented scans) rather than an O(n * lookback) chain DP —
-    endpoints are anchor extents within the winning diagonal corridor.
+    once, then reduced per segment) rather than an O(n * lookback) chain
+    DP — endpoints are anchor extents within the winning diagonal corridor.
     Precise endpoints/identity are recovered downstream by the banded
     aligner.
+
+The device program of one query batch (_match_block, _vote_emit) is three
+hand-written CUDA kernels (csrc/engine.cu) with two stable torch.sort
+lexsorts between them:
+
+  engine_anchor   replaces _match_block's lookup and expansion: binary
+                  search in the index, up to max_occ occurrences, the gates,
+                  the taken anchors compacted (a count pass, a cumsum, a
+                  write pass);
+  vote_corridor   replaces _vote_emit's vote: per (query, target, strand)
+                  group the bin counts, top_k corridors and each anchor's
+                  corridor, one warp a group;
+  chain_emit      replaces _vote_emit's chain scoring and emission: per
+                  group the corridor segments' link scores, extents and
+                  suppression, and the emit flag, one warp a group.
 
 Arrays are sized by their content: minimizer and anchor lists are compacted
 (padding entries never take part in any segment of valid anchors, so the
@@ -25,7 +40,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import _build
+from ..device import check_tensor, resolve_device
 from ..io.seqstore import SeqStore
 from ..ops.segment import (segment_argmax, segment_max, segment_min,
                            segment_starts, segment_sum)
@@ -189,109 +205,123 @@ def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
     return _build_index(h, rid, pos, st, lens, max_occ=max_occ, device=dev)
 
 
-def _match_block(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base, q_pos_base,
-                 qmask, idx: MiniIndex, k: int, max_occ: int,
-                 diag_shift: int, min_cnt: int, min_span: int, cap_out: int,
-                 top_k: int = 1):
-    """Anchors + diagonal voting for one sketched query batch.
+# ---------------------------------------------------------------------------
+# The device program: three hand-written CUDA kernels (csrc/engine.cu), each
+# with its plain PyTorch version beside it, which the wrapper takes for CPU
+# tensors only.  The plain versions reduce segments on segment ids
+# (ops/segment.py); the kernels give the same tensors exactly.
 
-    qm_*: flat minimizer tensors (M,), rid = local row ids.
-    qmask: (n_reads,) int8 — 1 marks reads that are (globally) part of the
-    query set.  When two query reads overlap each other, BOTH would find
-    the pair (each against the index), and downstream seed-keyed
-    symmetrization would then count the one true overlap TWICE per seed.
-    This gate drops an anchor to a target that is itself a query with a
-    SMALLER rid, so each query-query pair is emitted exactly once (by its
-    min-rid side), independent of host sharding.  All-zeros disables the
-    gate.
-    q_rid_base: (rows,) mapping local row -> global rid.  Several rows may
-    map to the same global rid (halo chunks of one long read): grouping is
-    by GLOBAL rid, so anchors from all chunks of a read vote together.
-    q_pos_base: (rows,) original-coord start of each row's buffer, added
-    to qm_pos so positions/diagonals are in whole-read coords.
-    top_k: emit up to this many diagonal corridors per (query, target,
-    strand) group: corridor i+1 is the best remaining bin outside
-    already-selected corridors, kept when its vote count is >= half the
-    primary's and its query span does not overlap the primary's by more
-    than 50%.
-    Returns (records dict of (n_out,) int64 tensors, n_out, overflow)
-    """
-    dev = qm_hash.device
-    M = qm_rid.shape[0]
-    lo = torch.searchsorted(idx.h, qm_hash, right=False)
-    hi = torch.searchsorted(idx.h, qm_hash, right=True)
+MAX_TOP_K = 8             # corridors a group the vote kernel keeps
+
+
+def engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
+                        q_pos_base, qmask, idx_h, idx_rid, idx_pos,
+                        max_occ: int):
+    """Plain version of engine_anchor (any device)."""
+    lo = torch.searchsorted(idx_h, qm_hash, right=False)
+    hi = torch.searchsorted(idx_h, qm_hash, right=True)
     cnt = torch.clamp(hi - lo, max=max_occ)
-
-    q_grid = q_rid_base.to(torch.int64)[qm_rid]
-    qm_pos = qm_pos + q_pos_base.to(torch.int64)[qm_rid]
-
+    q_grid = q_rid_base[qm_rid]
+    qpos = qm_pos + q_pos_base[qm_rid]
     # anchor expansion: (M, max_occ)
-    occ = torch.arange(max_occ, device=dev, dtype=torch.int64)[None, :]
+    occ = torch.arange(max_occ, device=qm_hash.device,
+                       dtype=torch.int64)[None, :]
     take = occ < cnt[:, None]
-    aidx = torch.clamp(lo[:, None] + occ, max=idx.h.shape[0] - 1)
-    t_rid = idx.rid[aidx].to(torch.int64)
-    t_posst = idx.pos[aidx].to(torch.int64)
-    t_pos = t_posst & POS_MASK
-    rel = (qm_strand[:, None] ^ (t_posst >> STRAND_BIT)) & 1
+    aidx = torch.clamp(lo[:, None] + occ, max=idx_h.shape[0] - 1)
+    t_rid = idx_rid[aidx].to(torch.int64)
+    t_posst = idx_pos[aidx].to(torch.int64)
     take = take & (t_rid != q_grid[:, None]) & (t_rid >= 0)
-    # pair-once gate (see qmask in the docstring)
+    # pair-once gate (see qmask in _match_block's docstring)
     take = take & ~((qmask[torch.clamp(t_rid, min=0)] > 0)
                     & (t_rid < q_grid[:, None]))
-
-    # keep the taken anchors only, in flat (minimizer, occurrence) order
+    # the taken anchors only, in flat (minimizer, occurrence) order
     sel = torch.nonzero(take.reshape(-1))[:, 0]
-    f = lambda x: x.reshape(-1)[sel]
-    qpos = f(qm_pos[:, None].expand(M, max_occ))
-    qr = f(q_grid[:, None].expand(M, max_occ))
-    return _vote_emit(
-        qr, f(t_rid), f(t_pos), f(rel), qpos, k=k, diag_shift=diag_shift,
-        min_cnt=min_cnt, min_span=min_span, cap_out=cap_out, top_k=top_k)
+    row = sel // max_occ
+    posst = t_posst.reshape(-1)[sel]
+    return (q_grid[row], t_rid.reshape(-1)[sel], posst & POS_MASK,
+            (qm_strand[row] ^ (posst >> STRAND_BIT)) & 1, qpos[row])
 
 
-def _stable_lexsort(keys):
-    """Permutation sorting by keys[0] (major) .. keys[-1] (minor): one
-    stable single-key pass per key, minor -> major."""
-    n = keys[0].shape[0]
-    perm = torch.arange(n, device=keys[0].device)
-    for kcol in reversed(keys):
-        order = torch.sort(kcol[perm], stable=True).indices
-        perm = perm[order]
-    return perm
+def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
+                  q_pos_base, qmask, idx_h, idx_rid, idx_pos, max_occ: int):
+    """A query batch's anchors against the index.
+
+    qm_rid, qm_pos, qm_hash, qm_strand: (M,) int64 minimizers (rid = the
+    batch row); q_rid_base, q_pos_base: (R,) int64 per row; qmask: (N,)
+    int8; idx_h (H,) int64 sorted, idx_rid / idx_pos (H,) int32.  Per
+    minimizer the first max_occ index entries of its hash, less self hits,
+    filter rows and the pair-once gate.  Returns (qr, t_rid, t_pos, rel,
+    qpos), (A,) int64 each, in flat (minimizer, occurrence) order.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel twice
+    (count, then write) around a cumsum of the counts."""
+    if qm_hash.device.type == "cpu":
+        return engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand,
+                                   q_rid_base, q_pos_base, qmask, idx_h,
+                                   idx_rid, idx_pos, max_occ)
+    dev = qm_hash.device
+    M, R, N, H = (qm_rid.shape[0], q_rid_base.shape[0], qmask.shape[0],
+                  idx_h.shape[0])
+    i64 = torch.int64
+    for name, t, n, dt in (
+            ("qm_rid", qm_rid, M, i64), ("qm_pos", qm_pos, M, i64),
+            ("qm_hash", qm_hash, M, i64), ("qm_strand", qm_strand, M, i64),
+            ("q_rid_base", q_rid_base, R, i64),
+            ("q_pos_base", q_pos_base, R, i64),
+            ("qmask", qmask, N, torch.int8), ("idx_h", idx_h, H, i64),
+            ("idx_rid", idx_rid, H, torch.int32),
+            ("idx_pos", idx_pos, H, torch.int32)):
+        check_tensor(name, t, (n,), dt, dev)
+    lib = _build.kernels()
+    lo_cnt = torch.empty((2, M), dtype=i64, device=dev)
+    ntake = torch.empty(M, dtype=i64, device=dev)
+    ins = [t.data_ptr() for t in (qm_rid, qm_pos, qm_hash, qm_strand,
+                                  q_rid_base, q_pos_base, qmask, idx_h,
+                                  idx_rid, idx_pos)]
+
+    def launch(counts, out, A, write):
+        with torch.cuda.device(dev):
+            rc = lib.ndt_engine_anchor(
+                *ins, lo_cnt.data_ptr(), counts.data_ptr(), out, M, H, A,
+                max_occ, write, torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch("engine_anchor", rc)
+        _build.LAUNCHES["engine_anchor"] += 1
+
+    if M:
+        launch(ntake, None, 0, 0)
+    ends = torch.cumsum(ntake, 0)
+    A = int(ends[-1]) if M else 0
+    out = torch.empty((5, A), dtype=i64, device=dev)
+    if A:
+        launch(ends, out.data_ptr(), A, 1)
+    return tuple(out)
 
 
-def _vote_emit(qr, t_rid, t_pos, rel, qpos, *, k: int, diag_shift: int,
-               min_cnt: int, min_span: int, cap_out: int, top_k: int):
-    """Diagonal-corridor voting + chain scoring + emission over flat anchor
-    tensors (A,) (every anchor is a taken one)."""
-    dev = qr.device
-    A = qr.shape[0]
-    if A == 0:
-        empty = torch.zeros(0, dtype=torch.int64, device=dev)
-        return {kk: empty for kk in REC_FIELDS}, 0, 0
-    diag = torch.where(rel == 0, qpos - t_pos, qpos + t_pos)
-    dbin = (diag >> diag_shift) + (1 << 20)
-    key_t = t_rid * 2 + rel
-    key_q = qr
-    key_b = dbin * (1 << 10) + torch.clamp(qpos >> 8, max=(1 << 10) - 1)
-    # lexicographic (key_q, key_t, key_b), ties in original flat order
-    perm = _stable_lexsort([key_q, key_t, key_b])
-    key_q, key_t, key_b, t_pos, qpos, diag = (
-        x[perm] for x in (key_q, key_t, key_b, t_pos, qpos, diag))
+def _group_starts(starts):
+    """(G + 1,) int64: the indices where `starts` is set, then its length."""
+    idx = torch.nonzero(starts)[:, 0]
+    end = torch.full((1,), starts.shape[0], dtype=idx.dtype,
+                     device=starts.device)
+    return torch.cat([idx, end])
+
+
+def vote_corridor_plain(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
+                        top_k: int):
+    """Plain version of vote_corridor (any device)."""
+    A = key_q.shape[0]
     dbin = key_b >> 10
-
     g_starts = segment_starts(key_q) | segment_starts(key_t)
     b_starts = g_starts | segment_starts(dbin)
-    ones = torch.ones(A, dtype=torch.int64, device=dev)
-    bin_cnt = segment_sum(ones, b_starts)
+    bin_cnt = segment_sum(torch.ones(A, dtype=torch.int64,
+                                     device=key_q.device), b_starts)
     width = 1 << diag_shift
-
     # top-K corridor selection: iteratively take the best-voted remaining
     # diagonal bin per group, assign each anchor to the nearest selected
     # corridor within +-width, then blank out the selected bin (+-2 bins)
     # before the next round.  Secondary corridors (i > 0) are kept only
     # when their bin vote is >= half the primary's.
-    corr = torch.full((A,), top_k, dtype=torch.int64, device=dev)
-    bestd = torch.full((A,), 1 << 30, dtype=torch.int64, device=dev)
+    corr = torch.full_like(key_q, top_k)
+    bestd = torch.full_like(key_q, 1 << 30)
     cur = bin_cnt
     prim_cnt = None
     for i in range(top_k):
@@ -306,17 +336,57 @@ def _vote_emit(qr, t_rid, t_pos, rel, qpos, *, k: int, diag_shift: int,
         bestd = torch.where(better, di, bestd)
         if i + 1 < top_k:
             cur = torch.where(torch.abs(dbin - bb) <= 2, -1, cur)
+    return (key_t * (top_k + 1) + corr,
+            torch.where(corr < top_k, qpos, I32MAX))
 
-    # chain score per corridor: re-sort corridor anchors by exact qpos and
-    # score consecutive links alpha = min(dq, dt, k) minus the gap penalty
-    # beta = 0.01*k*|dd| + 0.5*log2(|dd|); non-colinear links contribute 0.
+
+def vote_corridor(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
+                  top_k: int):
+    """Corridor vote over anchors in the first sort's order (key_q, key_t,
+    key_b; (A,) int64 each, with each anchor's diag and qpos): per (key_q,
+    key_t) group the top_k best-voted diagonal bins, and each anchor's
+    nearest kept corridor (top_k = none).  Returns (key_t2, qp2_key), the
+    second sort's keys: key_t * (top_k + 1) + corridor, and qpos where the
+    anchor has a corridor, else I32MAX.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    warp a group."""
+    if key_q.device.type == "cpu":
+        return vote_corridor_plain(key_q, key_t, key_b, diag, qpos,
+                                   diag_shift=diag_shift, top_k=top_k)
+    dev = key_q.device
+    A = key_q.shape[0]
+    if not 1 <= top_k <= MAX_TOP_K:
+        raise ValueError(f"vote_corridor: top_k {top_k} outside 1.."
+                         f"{MAX_TOP_K}")
+    for name, t in (("key_q", key_q), ("key_t", key_t), ("key_b", key_b),
+                    ("diag", diag), ("qpos", qpos)):
+        check_tensor(name, t, (A,), torch.int64, dev)
+    lib = _build.kernels()
+    gstart = _group_starts(segment_starts(key_q) | segment_starts(key_t))
+    G = gstart.shape[0] - 1
+    key_t2 = torch.empty_like(key_t)
+    qp2_key = torch.empty_like(qpos)
+    if G:
+        with torch.cuda.device(dev):
+            rc = lib.ndt_vote_corridor(
+                key_t.data_ptr(), key_b.data_ptr(), diag.data_ptr(),
+                qpos.data_ptr(), gstart.data_ptr(), key_t2.data_ptr(),
+                qp2_key.data_ptr(), G, diag_shift, top_k,
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch("vote_corridor", rc)
+        _build.LAUNCHES["vote_corridor"] += 1
+    return key_t2, qp2_key
+
+
+def chain_emit_plain(kq2, kt2, qp2, tp2, *, k: int, top_k: int,
+                     min_cnt: int, min_span: int):
+    """Plain version of chain_emit (any device)."""
+    dev = kq2.device
     KC = top_k + 1
-    qp2_key = torch.where(corr < top_k, qpos, I32MAX)
-    key_t2 = key_t * KC + torch.clamp(corr, max=top_k)
-    # 4 keys (t_pos breaks qpos ties): emitted records are then a pure
-    # function of the anchor SET, independent of anchor order
-    perm2 = _stable_lexsort([key_q, key_t2, qp2_key, t_pos])
-    kq2, kt2, qp2, tp2 = (x[perm2] for x in (key_q, key_t2, qp2_key, t_pos))
+    # chain score per corridor: corridor anchors in exact qpos order, each
+    # consecutive link scored alpha = min(dq, dt, k) minus the gap penalty
+    # beta = 0.01*k*|dd| + 0.5*log2(|dd|); non-colinear links contribute 0.
     near2 = qp2 != I32MAX
     g2 = segment_starts(kq2) | segment_starts(kt2)
     key_tq = kt2 // KC        # original (t_rid*2 + rel) key
@@ -353,27 +423,141 @@ def _vote_emit(qr, t_rid, t_pos, rel, qpos, *, k: int, diag_shift: int,
     oq = torch.minimum(qe, qe0) - torch.maximum(qs, qs0)
     sec_ok = (corr2 == 0) | (oq * 2 < qe - qs)
 
-    # emit one record per corridor segment (at segment end; all per-segment
-    # quantities are broadcast to every element by the segment ops)
+    # one record per corridor segment, at its last anchor
     g2_ends = torch.cat([g2[1:], torch.ones((1,), dtype=torch.bool,
                                             device=dev)])
     span = torch.minimum(qe - qs, te - ts)
     emit = (g2_ends & near2 & sec_ok & (cnt2 >= min_cnt)
             & (span >= min_span))
+    rec = torch.stack([kq2, key_tq & 1, qs, qe, key_tq >> 1, ts, te,
+                       torch.minimum(chain_sc, span)])
+    return emit, torch.where(emit, rec, 0)
 
+
+def chain_emit(kq2, kt2, qp2, tp2, *, k: int, top_k: int, min_cnt: int,
+               min_span: int):
+    """Chain score, extents, secondary suppression and emission over
+    anchors in the second sort's order (key_q, key_t2, qp2_key, t_pos;
+    (A,) int64 each).  Returns (emit, rec): (A,) bool, set at the last
+    anchor of each corridor segment that makes a record, and (8, A) int64,
+    that record's REC_FIELDS in that column and zeros elsewhere.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel, one
+    warp a (key_q, t_rid * 2 + rel) group."""
+    kw = dict(k=k, top_k=top_k, min_cnt=min_cnt, min_span=min_span)
+    if kq2.device.type == "cpu":
+        return chain_emit_plain(kq2, kt2, qp2, tp2, **kw)
+    dev = kq2.device
+    A = kq2.shape[0]
+    for name, t in (("kq2", kq2), ("kt2", kt2), ("qp2", qp2), ("tp2", tp2)):
+        check_tensor(name, t, (A,), torch.int64, dev)
+    lib = _build.kernels()
+    gstart = _group_starts(segment_starts(kq2)
+                           | segment_starts(kt2 // (top_k + 1)))
+    G = gstart.shape[0] - 1
+    emit = torch.empty(A, dtype=torch.bool, device=dev)
+    rec = torch.empty((8, A), dtype=torch.int64, device=dev)
+    if G:
+        with torch.cuda.device(dev):
+            rc = lib.ndt_chain_emit(
+                kq2.data_ptr(), kt2.data_ptr(), qp2.data_ptr(),
+                tp2.data_ptr(), gstart.data_ptr(), emit.data_ptr(),
+                rec.data_ptr(), A, G, k, top_k, min_cnt, min_span,
+                # the plain version's 0.01 * k as PyTorch casts it
+                float(np.float32(0.01 * k)),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch("chain_emit", rc)
+        _build.LAUNCHES["chain_emit"] += 1
+    return emit, rec
+
+
+def _match_block(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base, q_pos_base,
+                 qmask, idx: MiniIndex, k: int, max_occ: int,
+                 diag_shift: int, min_cnt: int, min_span: int, cap_out: int,
+                 top_k: int = 1):
+    """Anchors + diagonal voting for one sketched query batch.
+
+    qm_*: flat minimizer tensors (M,), rid = local row ids.
+    qmask: (n_reads,) int8 — 1 marks reads that are (globally) part of the
+    query set.  When two query reads overlap each other, BOTH would find
+    the pair (each against the index), and downstream seed-keyed
+    symmetrization would then count the one true overlap TWICE per seed.
+    This gate drops an anchor to a target that is itself a query with a
+    SMALLER rid, so each query-query pair is emitted exactly once (by its
+    min-rid side), independent of host sharding.  All-zeros disables the
+    gate.
+    q_rid_base: (rows,) mapping local row -> global rid.  Several rows may
+    map to the same global rid (halo chunks of one long read): grouping is
+    by GLOBAL rid, so anchors from all chunks of a read vote together.
+    q_pos_base: (rows,) original-coord start of each row's buffer, added
+    to qm_pos so positions/diagonals are in whole-read coords.
+    top_k: emit up to this many diagonal corridors per (query, target,
+    strand) group: corridor i+1 is the best remaining bin outside
+    already-selected corridors, kept when its vote count is >= half the
+    primary's and its query span does not overlap the primary's by more
+    than 50%.
+    Returns (records dict of (n_out,) int64 tensors, n_out, overflow)
+    """
+    anchors = engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
+                            q_pos_base, qmask, idx.h, idx.rid, idx.pos,
+                            max_occ)
+    return _vote_emit(
+        *anchors, k=k, diag_shift=diag_shift, min_cnt=min_cnt,
+        min_span=min_span, cap_out=cap_out, top_k=top_k)
+
+
+def _stable_lexsort(keys):
+    """Permutation sorting by keys[0] (major) .. keys[-1] (minor): one
+    stable single-key pass per key, minor -> major."""
+    n = keys[0].shape[0]
+    perm = torch.arange(n, device=keys[0].device)
+    for kcol in reversed(keys):
+        order = torch.sort(kcol[perm], stable=True).indices
+        perm = perm[order]
+    return perm
+
+
+def _vote_inputs(qr, t_rid, t_pos, rel, qpos, *, diag_shift: int):
+    """vote_corridor's inputs: (key_q, key_t, key_b, diag, qpos) in the
+    first sort's order, lexicographic (key_q, key_t, key_b) with ties in
+    the anchors' order, and t_pos in that order."""
+    diag = torch.where(rel == 0, qpos - t_pos, qpos + t_pos)
+    dbin = (diag >> diag_shift) + (1 << 20)
+    key_t = t_rid * 2 + rel
+    key_b = dbin * (1 << 10) + torch.clamp(qpos >> 8, max=(1 << 10) - 1)
+    perm = _stable_lexsort([qr, key_t, key_b])
+    return tuple(x[perm] for x in (qr, key_t, key_b, diag, qpos, t_pos))
+
+
+def _chain_inputs(key_q, key_t2, qp2_key, t_pos):
+    """chain_emit's inputs: the four keys in the second sort's order.  Its
+    4 keys (t_pos breaks qpos ties) make the emitted records a pure
+    function of the anchor SET, independent of anchor order."""
+    perm2 = _stable_lexsort([key_q, key_t2, qp2_key, t_pos])
+    return tuple(x[perm2] for x in (key_q, key_t2, qp2_key, t_pos))
+
+
+def _vote_emit(qr, t_rid, t_pos, rel, qpos, *, k: int, diag_shift: int,
+               min_cnt: int, min_span: int, cap_out: int, top_k: int):
+    """Diagonal-corridor voting + chain scoring + emission over flat anchor
+    tensors (A,) (every anchor is a taken one): vote_corridor after the
+    first sort, chain_emit after the second, then the first cap_out
+    records in order."""
+    if qr.shape[0] == 0:
+        empty = torch.zeros(0, dtype=torch.int64, device=qr.device)
+        return {kk: empty for kk in REC_FIELDS}, 0, 0
+    key_q, key_t, key_b, diag, qpos, t_pos = _vote_inputs(
+        qr, t_rid, t_pos, rel, qpos, diag_shift=diag_shift)
+    key_t2, qp2_key = vote_corridor(key_q, key_t, key_b, diag, qpos,
+                                    diag_shift=diag_shift, top_k=top_k)
+    emit, rec = chain_emit(*_chain_inputs(key_q, key_t2, qp2_key, t_pos),
+                           k=k, top_k=top_k, min_cnt=min_cnt,
+                           min_span=min_span)
     hits = torch.nonzero(emit)[:, 0]
     n_emit = int(hits.shape[0])
     hc = hits[:cap_out]           # the first cap_out in order; rest dropped
-    rec = dict(
-        qname=kq2[hc],
-        rev=key_tq[hc] & 1,
-        qs=qs[hc], qe=qe[hc],
-        tname=key_tq[hc] >> 1,
-        ts=ts[hc], te=te[hc],
-        match=torch.minimum(chain_sc[hc], span[hc]),
-    )
     n_out = int(hc.shape[0])
-    return rec, n_out, n_emit - n_out
+    return dict(zip(REC_FIELDS, rec[:, hc])), n_out, n_emit - n_out
 
 
 def find_overlaps(store: SeqStore, query_rids, idx: MiniIndex, k: int, w: int,

@@ -122,6 +122,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.ops import align, extend, myers
+    from nextdenovo_tpu_torch.overlap import engine
     monkeypatch.setattr(_build, "_kernels", None)
     monkeypatch.setattr(_build, "KERNEL_LIB",
                         os.path.join(str(_build.BUILD_DIR), "absent.so"))
@@ -134,12 +135,16 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     called = []
     assert sorted(_build.LAUNCHES) == sorted(
         ["myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
-         "wave_fast_fwd", "wave_fast_tb"])
+         "wave_fast_fwd", "wave_fast_tb", "engine_anchor", "vote_corridor",
+         "chain_emit"])
     for mod, name in ((myers, "myers_fwd_plain"), (myers, "myers_tb_plain"),
                       (align, "wave_fwd_plain"), (align, "wave_tb_plain"),
                       (align, "wave_fast_fwd_plain"),
                       (align, "wave_fast_tb_plain"),
-                      (extend, "ext_fwd_plain")):
+                      (extend, "ext_fwd_plain"),
+                      (engine, "engine_anchor_plain"),
+                      (engine, "vote_corridor_plain"),
+                      (engine, "chain_emit_plain")):
         monkeypatch.setattr(mod, name,
                             lambda *a, **k: called.append(1))
     meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
@@ -167,6 +172,16 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     meta8 = lambda *s: torch.empty(s, dtype=torch.uint8, device="meta")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         extend.ext_fwd(meta8(2, 64), meta8(2, 64), meta(2, 2))
+    m64 = lambda *s: torch.empty(s, dtype=torch.int64, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        engine.engine_anchor(m64(6), m64(6), m64(6), m64(6), m64(2), m64(2),
+                             torch.empty(9, dtype=torch.int8, device="meta"),
+                             m64(5), meta(5), meta(5), max_occ=16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        engine.vote_corridor(*(m64(7),) * 5, diag_shift=8, top_k=4)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        engine.chain_emit(*(m64(7),) * 4, k=15, top_k=4, min_cnt=4,
+                          min_span=500)
     assert not called
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
