@@ -40,9 +40,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              two vote kernels on those anchors at top_k 1 and 4; the vote
              kernels also on one anchor, groups of one anchor, tied bins,
              groups whose bins are all blanked after round 1, random sets,
-             one group of 300k anchors and one bin of 100k; each set's whole
-             _vote_emit on the card equal to the CPU's (records, n_out,
-             overflow; one set's cap_out must truncate)
+             one group of 300k anchors and one bin of 100k, and at the vote
+             tile's edge (groups of tile - 1, tile, tile + 1 and 2 x tile
+             runs, one-anchor groups around one past the tile, runs over 32
+             anchors on a 32's edges) at top_k 1, 4 and 8; both vote
+             kernels on _vote_emit's one set of group starts and on their
+             own; each set's whole _vote_emit on the card equal to the
+             CPU's (records, n_out, overflow; one set's cap_out must
+             truncate); chain_emit also on keys in the second sort's order
+             that the vote would not make (engine_chain_sets);
+             vote_corridor_kernel with no stack frame in `nvcc -Xptxas -v`
   overlaps   find_overlaps on fixed batches of reads gives identical
              records on the card (the engine kernels launched) and on the
              CPU: ONT reads at k = 17, w = 10; HiFi reads (one longer than
@@ -100,9 +107,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              columns (ms, cycles an anti-diagonal of the longest pair), every
              pair equal to the same pair in launches of 64, and wave_fast_tb
              at the same sizes on tb/base from wave_fast_fwd; the engine
-             kernels at the main path's batch, and one whole _match_block
-             call with the kernels against the same call with the plain
-             versions on the card, and a host sync's cost
+             kernels at the main path's batch, each alone (launches only)
+             and as a whole wrapper call, its group sizes, one whole
+             _match_block call with the kernels against the same call with
+             the plain versions on the card, the host syncs of one call
+             (counted) and a host sync's cost
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -835,6 +844,77 @@ def engine_vote_sets(rng):
     return sets
 
 
+def runs_group(rng, lens, q=0, t=1, spacing=(1, 2, 3, 5)):
+    """Anchors of one forward (query q, target t) group whose diagonal bins
+    are len(lens) runs of lens[j] anchors, bins spaced by a random choice of
+    `spacing` (the +-2 blanking takes some neighbours); negative diagonals."""
+    import numpy as np
+    lens = np.asarray(lens)
+    bins = np.cumsum(rng.choice(spacing, len(lens)))
+    n = int(lens.sum())
+    diag = (np.repeat(bins, lens) * 256 + rng.integers(0, 256, n)) - (1 << 20)
+    # run j's anchors at query positions [2000 j, 2000 j + 2000)
+    qpos = (np.repeat(np.arange(len(lens)), lens) * 2000
+            + rng.integers(0, 2000, n))
+    return tuple(np.asarray(c, np.int64) for c in (
+        np.full(n, q), np.full(n, t), qpos - diag, np.zeros(n), qpos))
+
+
+def engine_tile_sets(rng):
+    """(tag, anchors, top_k, cap_out) at the vote kernel's tile edge
+    (VOTE_TILE runs a group): groups of tile - 1, tile and tile + 1 runs,
+    one of 2 x tile runs, many one-anchor groups around one group past the
+    tile, runs of more than 32 anchors that start and end on a 32's edges;
+    each at top_k 1, 4 and 8."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap.engine import VOTE_TILE as T
+    cat = lambda *sets: tuple(np.concatenate(c) for c in zip(*sets))
+    # runs of 1-3 anchors, a few of 6-11 that win the rounds
+    few = lambda n: np.where(rng.random(n) < 0.03, rng.integers(6, 12, n),
+                             rng.integers(1, 4, n))
+    sets = {
+        f"groups of {T - 1}, {T}, {T + 1} runs": cat(*(
+            runs_group(rng, few(n), t=t)
+            for t, n in ((1, T - 1), (2, T), (3, T + 1)))),
+        f"a group of {2 * T} runs": runs_group(rng, few(2 * T), t=4),
+        "one-anchor groups around one past the tile": cat(
+            *(runs_group(rng, [1], t=t) for t in range(5, 2000) if t != 900),
+            runs_group(rng, few(T + 7), t=900)),
+        "runs over 32 anchors on a 32's edges": cat(
+            runs_group(rng, [33, 31, 32, 64, 1, 70, 2, 32, 40], t=7,
+                       spacing=(3,)),
+            runs_group(rng, [5, 27, 64, 33], q=1, t=7, spacing=(4,)))}
+    return [(tag, a, top_k, 4352) for tag, a in sets.items()
+            for top_k in (1, 4, 8)]
+
+
+def engine_chain_sets(rng):
+    """(tag, chain_emit's four inputs as numpy, top_k): keys in the second
+    sort's order that the vote would not make, at top_k 1, 4 and 8: every
+    corridor digit, anchors without a corridor (I32MAX) among them, targets
+    that follow the queries closely across corridor boundaries (a link there
+    would score), one group of 40k anchors (there the odd corridors only
+    hold anchors without one, so that the even ones make records)."""
+    import numpy as np
+    out = []
+    for top_k in (1, 4, 8):
+        kc = top_k + 1
+        for n, n_q, n_t in ((3000, 4, 30), (40_000, 1, 1)):
+            kq2 = rng.integers(0, n_q, n)
+            corr = rng.integers(0, kc, n)
+            kt2 = rng.integers(0, n_t, n) * kc + corr
+            none = (rng.random(n) < 0.1 if n_t > 1
+                    else (corr % 2 == 1) & (rng.random(n) < 0.1))
+            qp2 = np.where(none, 2**31 - 1, rng.integers(0, 20000, n) * (
+                1 + n // 3000))
+            tp2 = np.abs(qp2 % (2**31 - 1) + 1000 + rng.integers(-40, 41, n))
+            order = np.lexsort((tp2, qp2, kt2, kq2))
+            out.append((f"sorted keys, {n_q * n_t} groups of {n} anchors",
+                        tuple(np.asarray(x[order], np.int64)
+                              for x in (kq2, kt2, qp2, tp2)), top_k))
+    return out
+
+
 def engine_anchor_sets(rng):
     """(tag, args of engine_anchor as numpy, max_occ): a synthetic index
     with hashes of more than max_occ entries, filter rows (0xFFFFFFFF, rid
@@ -956,8 +1036,11 @@ def compare_engine_kernels(dev, tag, anchors=None, batch=None, max_occ=16,
     if A == 0:
         return res, anchors
     vi = E._vote_inputs(*anchors, diag_shift=diag_shift)
+    # both kernels on the one set of group starts, as _vote_emit hands them
+    gstart = E.group_starts(vi[0], vi[1])
     vk, vp, t = _run(
-        lambda: E.vote_corridor(*vi[:5], diag_shift=diag_shift, top_k=top_k),
+        lambda: E.vote_corridor(*vi[:5], diag_shift=diag_shift, top_k=top_k,
+                                gstart=gstart),
         lambda: E.vote_corridor_plain(*vi[:5], diag_shift=diag_shift,
                                       top_k=top_k), reps)
     G = int((E.segment_starts(vi[0]) | E.segment_starts(vi[1])).sum())
@@ -967,12 +1050,20 @@ def compare_engine_kernels(dev, tag, anchors=None, batch=None, max_occ=16,
     ci = E._chain_inputs(vi[0], vk[0], vk[1], vi[5])
     kw = dict(k=s1["k"], top_k=top_k, min_cnt=s1["min_cnt"],
               min_span=s1["min_span"])
-    ck, cp, t = _run(lambda: E.chain_emit(*ci, **kw),
+    ck, cp, t = _run(lambda: E.chain_emit(*ci, **kw, gstart=gstart),
                      lambda: E.chain_emit_plain(*ci, **kw), reps)
     byt, ops = _engine_bounds("chain_emit", ci, ck, top_k)
     _record(res, tag, "chain_emit", ck, cp, dict(
         t, shape=f"A={A} top_k={top_k} emitted={int(ck[0].sum())}",
         **_bound(byt, ops)))
+    # called alone, each wrapper makes its own starts: the same tensors
+    for name, got, want in (
+            ("vote_corridor", E.vote_corridor(*vi[:5], diag_shift=diag_shift,
+                                              top_k=top_k), vk),
+            ("chain_emit", E.chain_emit(*ci, **kw), ck)):
+        if not all(_tensors_equal(a, b)[0] for a, b in zip(got, want)):
+            raise RuntimeError(f"{name} on its own group starts differs "
+                               f"from {name} on _vote_emit's on '{tag}'")
     return res, anchors
 
 
@@ -993,10 +1084,12 @@ def phase_engine(dev):
     """The engine's three kernels against their plain versions on the card
     (exact equality of every output), on engine_anchor_sets and the main
     path's batch (then vote_corridor and chain_emit on their anchors) and
-    on engine_vote_sets at top_k 1 and 4; for each set also the whole
+    on engine_vote_sets at top_k 1 and 4 and engine_tile_sets at top_k 1, 4
+    and 8; for each set also the whole
     _vote_emit, card (kernels) against CPU (plain versions): the same
     records, n_out and overflow.  Returns the main path's batch."""
     import numpy as np
+    import torch
     from nextdenovo_tpu_torch.overlap import engine as E
     s1 = STAGE01
     rng = np.random.default_rng(19)
@@ -1010,6 +1103,7 @@ def phase_engine(dev):
         _same_vote_emit(card, cpu, tag)
         return card[1], card[2]
 
+    engine_ptxas()
     t0 = time.time()
     mb = main_batch(dev)
     log(f"[engine] the main path's batch: {mb['rows']} rows, reads of "
@@ -1025,7 +1119,8 @@ def phase_engine(dev):
                 f"{k_} exact={v['exact']} ({v['shape']})"
                 for k_, v in r.items()) + f"; _vote_emit card == cpu, "
                 f"{n} records, overflow {over}")
-    for tag, anchors, top_k, cap_out in engine_vote_sets(rng):
+    for tag, anchors, top_k, cap_out in (engine_vote_sets(rng)
+                                         + engine_tile_sets(rng)):
         r, anchors = compare_engine_kernels(dev, tag, anchors=anchors,
                                             top_k=top_k)
         n, over = vote_both(tag, anchors, top_k, cap_out)
@@ -1035,6 +1130,19 @@ def phase_engine(dev):
         if "truncates" in tag and over == 0:
             raise RuntimeError(f"'{tag}': cap_out {cap_out} left no "
                                "overflow")
+    for tag, ci, top_k in engine_chain_sets(rng):
+        ci = tuple(torch.from_numpy(x).to(dev) for x in ci)
+        ckw = dict(k=s1["k"], top_k=top_k, min_cnt=s1["min_cnt"],
+                   min_span=s1["min_span"])
+        want = E.chain_emit_plain(*ci, **ckw)
+        gs = E.group_starts(ci[0], ci[1] // (top_k + 1))
+        res = {}
+        for how, got in (("own starts", E.chain_emit(*ci, **ckw)),
+                         ("starts given", E.chain_emit(*ci, **ckw,
+                                                       gstart=gs))):
+            _record(res, f"{tag}, {how}", "chain_emit", got, want)
+        log(f"[engine] {tag}, top_k {top_k}: chain_emit exact=True on its "
+            f"own starts and on given ones, {int(want[0].sum())} emitted")
     return mb
 
 
@@ -1047,7 +1155,9 @@ class plain_engine:
         from nextdenovo_tpu_torch.overlap import engine as E
         self.saved = {n: getattr(E, n) for n in ENGINE_KERNELS}
         for n in ENGINE_KERNELS:
-            setattr(E, n, getattr(E, n + "_plain"))
+            plain = getattr(E, n + "_plain")
+            # _vote_emit hands the kernels' wrappers its group starts
+            setattr(E, n, lambda *a, _f=plain, gstart=None, **k: _f(*a, **k))
 
     def __exit__(self, *exc):
         from nextdenovo_tpu_torch.overlap import engine as E
@@ -1055,22 +1165,192 @@ class plain_engine:
             setattr(E, n, f)
 
 
+def engine_ptxas():
+    """{kernel: (registers, stack frame bytes, spill bytes)} of csrc/engine.cu
+    as `nvcc -Xptxas -v` reports them for sm_90a; printed."""
+    import re
+    from nextdenovo_tpu_torch import _build
+    src = os.path.join(_build.CSRC_DIR, "engine.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        r = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS,
+                            "-Xptxas", "-v", "-c", "-o",
+                            os.path.join(tmp, "e.o"), src],
+                           capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"nvcc engine.cu failed:\n{r.stdout}{r.stderr}")
+    out, cur = {}, None
+    for line in (r.stdout + r.stderr).splitlines():
+        m = re.search(r"Function properties for \S*?"
+                      r"((?:engine_anchor|vote_corridor|chain_emit)_kernel)",
+                      line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and cur:
+            out[cur] = [None, int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in out:
+            out[cur][0] = int(m.group(1))
+            cur = None
+    log("[engine] -Xptxas -v: " + "; ".join(
+        f"{k}: {v[0]} registers, {v[1]} B stack frame, {v[2]} B spills"
+        for k, v in out.items()))
+    if out.get("vote_corridor_kernel", [0, 1])[1] != 0:
+        raise RuntimeError("vote_corridor_kernel keeps a stack frame (its "
+                           "rounds' bins belong in registers)")
+    return out
+
+
+def engine_groups(vi):
+    """The (key_q, key_t) groups of vote_corridor's input: anchors and runs
+    of one diagonal bin a group (median, p99, max), and the share of groups
+    and of anchors in groups of more runs than the vote kernel's tile."""
+    import torch
+    from nextdenovo_tpu_torch.overlap import engine as E
+    T = E.VOTE_TILE
+    key_q, key_t, key_b = vi[:3]
+    gs = E.segment_starts(key_q) | E.segment_starts(key_t)
+    gid = torch.cumsum(gs.to(torch.int64), 0) - 1
+    G = int(gid[-1]) + 1
+    size = torch.bincount(gid, minlength=G)
+    runs = torch.bincount(gid[gs | E.segment_starts(key_b >> 10)],
+                          minlength=G)
+
+    def q(x):
+        xf = x.to(torch.float64)
+        return (f"median {float(torch.quantile(xf, 0.5)):.0f}, p99 "
+                f"{float(torch.quantile(xf, 0.99)):.0f}, max {int(x.max())}")
+    past = runs > T
+    log(f"[engine] groups of the main path's batch: {G} groups of "
+        f"{int(size.sum())} anchors; anchors a group {q(size)}; runs a group "
+        f"{q(runs)}; past the vote tile of {T} runs: "
+        f"{100 * float(past.double().mean()):.2f} % of groups, "
+        f"{100 * float(size[past].sum() / size.sum()):.2f} % of anchors")
+
+
+def count_syncs(fn):
+    """(fn's result, the host syncs it made, where: for each the innermost
+    line of this repository's code on the stack): PyTorch's sync debug mode
+    warns at each synchronising CUDA operation, and the warnings are
+    counted."""
+    import traceback
+    import warnings
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    at = []
+
+    def seen(message, *a, **k):
+        if "synchroniz" not in str(message):
+            return
+        mine = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(here)]
+        f = mine[-1] if mine else traceback.extract_stack()[-2]
+        at.append(f"{os.path.relpath(f.filename, here)}:{f.lineno}")
+
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        at.clear()                        # the switch itself warns
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return out, len(at), at
+
+
+def _events_ms(fn, reps=5):
+    """ms a call of fn by CUDA events around reps calls, after a warm one:
+    fn launches only, its inputs made before.  The device first sleeps
+    ~1 ms, so that the launches are all queued before the start event and
+    the host's time to make them is not measured."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def engine_alone(dev, mb, top_k, reps=5):
+    """The three engine kernels' launches alone at the main path's batch
+    (CUDA events around the launches only; the wrapper's inputs, group
+    starts and buffers made before): engine_anchor's count and write
+    launches, vote_corridor's and chain_emit's one launch each, on the
+    group starts _vote_emit makes.  Returns {name: ms}."""
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    lib = _build.kernels()
+    args = mb["args"]
+    M, H = args[0].shape[0], args[7].shape[0]
+    i64 = torch.int64
+    ins = [t.data_ptr() for t in args]
+    lo_cnt = torch.empty((2, M), dtype=i64, device=dev)
+    ntake = torch.empty(M, dtype=i64, device=dev)
+    mo = s1["max_occ"]
+    count = lambda: E._anchor_launch(lib, ins, lo_cnt, ntake, None, M, H, 0,
+                                     mo, 0)
+    count()
+    ends = torch.cumsum(ntake, 0)
+    A = int(ends[-1])
+    out = torch.empty((5, A), dtype=i64, device=dev)
+    ms = {"engine_anchor": _events_ms(count, reps) + _events_ms(
+        lambda: E._anchor_launch(lib, ins, lo_cnt, ends, out.data_ptr(), M,
+                                 H, A, mo, 1), reps)}
+    vi = E._vote_inputs(*out, diag_shift=8)
+    gstart = E.group_starts(vi[0], vi[1])
+    key_t2, qp2 = torch.empty_like(vi[1]), torch.empty_like(vi[4])
+    ms["vote_corridor"] = _events_ms(lambda: E._vote_launch(
+        lib, *vi[1:5], gstart, key_t2, qp2, A, 8, top_k), reps)
+    ci = E._chain_inputs(vi[0], key_t2, qp2, vi[5])
+    emit = torch.empty(A, dtype=torch.bool, device=dev)
+    rec = torch.empty((8, A), dtype=i64, device=dev)
+    ms["chain_emit"] = _events_ms(lambda: E._chain_launch(
+        lib, *ci, gstart, emit, rec, A, k=s1["k"], top_k=top_k,
+        min_cnt=s1["min_cnt"], min_span=s1["min_span"]), reps)
+    ms["group_starts"] = _events_ms(lambda: E.group_starts(vi[0], vi[1]),
+                                    reps)
+    _, ms["group_starts call"] = timed(lambda: E.group_starts(vi[0], vi[1]),
+                                       reps)
+    log("[timing] engine kernels alone (launches only, CUDA events, "
+        f"{reps} after a warm one; A={A}, top_k={top_k}): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return ms, vi
+
+
 def engine_timing(dev, mb):
     """The three kernels at the main path's batch shape (top_k 4) against
-    their plain versions, then one whole _match_block call with the kernels
-    against the same call with the plain versions on the card (host clock,
-    in turns plain, kernels, kernels, plain, 5 calls each), and what a
-    host sync costs."""
+    their plain versions: each wrapper's whole call and its launches alone;
+    the batch's group sizes; then one whole _match_block call with the
+    kernels against the same call with the plain versions on the card (host
+    clock, in turns plain, kernels, kernels, plain, 5 calls each), the host
+    syncs one call makes, counted, and what a host sync costs."""
     import torch
     from nextdenovo_tpu_torch.overlap import engine as E
     s1 = STAGE01
     r, _ = compare_engine_kernels(dev, "main-path batch (timing)",
                                   batch=mb["args"], max_occ=s1["max_occ"],
                                   top_k=s1["top_k"], reps=5)
+    alone, vi = engine_alone(dev, mb, s1["top_k"])
     for name, v in r.items():
-        log(f"[timing] {name}: {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} "
-            f"ms), bound {v['bound_ms']:.4f} ms by {v['bound_by']}, "
-            f"{v['shape']}")
+        v["wrapper_ms"], v["ms"] = v["ms"], alone[name]
+        log(f"[timing] {name}: kernel alone {v['ms']:.4f} ms, whole call "
+            f"{v['wrapper_ms']:.4f} ms (plain {v['plain_ms']:.3f} ms), bound "
+            f"{v['bound_ms']:.4f} ms by {v['bound_by']}, {v['shape']}")
+    engine_groups(vi)
     a = mb["args"]
     call = lambda: E._match_block(
         *a[:7], mb["idx"], k=s1["k"], max_occ=s1["max_occ"], diag_shift=8,
@@ -1096,9 +1376,9 @@ def engine_timing(dev, mb):
             ms, outs[which] = wall()
         times[which].append(ms)
     _same_vote_emit(outs["kernels"], outs["plain"], "main-path batch")
-    # a sync's round trip on an idle device; a _match_block call makes four
-    # (engine_anchor's count, the two group-start nonzeros, the hits) and
-    # find_overlaps a fifth (the records' copy to the host)
+    _, n_sync, sync_at = count_syncs(call)
+    # a sync's round trip on an idle device; find_overlaps adds one to a
+    # _match_block call's (the records' copy to the host)
     x = torch.zeros(1, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1109,12 +1389,14 @@ def engine_timing(dev, mb):
     log(f"[timing] _match_block, the main path's batch ({outs['kernels'][1]} "
         f"records): kernels {km:.3f} ms ({times['kernels']}), plain versions "
         f"on the card {pm:.3f} ms ({times['plain']}); x{pm / km:.1f}")
-    log(f"[timing] host syncs: 5 a batch (engine_anchor's count, two group "
-        f"starts, the hits, the records' copy), {sync_us:.1f} us each on an "
-        f"idle device: {5 * sync_us * 367 / 1e3:.1f} ms over stage 01's 367 "
-        f"batches")
+    log(f"[timing] host syncs: {n_sync} a _match_block call (counted in "
+        f"PyTorch's sync debug mode, at {', '.join(sync_at)}), "
+        f"{n_sync + 1} a batch with the records' "
+        f"copy; {sync_us:.1f} us each on an idle device: "
+        f"{(n_sync + 1) * sync_us * 367 / 1e3:.1f} ms over the main path's "
+        f"367 batches")
     return r, dict(match_block_ms=km, match_block_plain_ms=pm,
-                   sync_us=sync_us)
+                   sync_us=sync_us, syncs=n_sync)
 
 
 # --------------------------------------------------------------------------
@@ -2515,8 +2797,8 @@ def main() -> int:
             launches_hifi=hifi_launches[name],
             launches_multihost=[h[name] for h in mh_launches],
             launches_mesh=mesh_launches[name],
-            **({"host_native_ms": t["host_native_ms"]}
-               if "host_native_ms" in t else {})))
+            **{k: t[k] for k in ("host_native_ms", "wrapper_ms")
+               if k in t}))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Compare versions of a wavefront kernel on one card, in turns.
+"""Compare versions of a wavefront or engine kernel on one card, in turns.
 
     python3 chip_variants.py [--latency] A.cu [B.cu ...]
     python3 chip_variants.py --kernel wave_fwd A.cu [B.cu ...]
     python3 chip_variants.py --kernel wave_fast_tb A.cu [B.cu ...]
     python3 chip_variants.py --kernel wave_fast_fwd A.cu [B.cu ...]
+    python3 chip_variants.py --kernel vote_corridor A.cu [B.cu ...]
+    python3 chip_variants.py --kernel chain_emit A.cu [B.cu ...]
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -55,6 +57,20 @@ order given and in reverse, at those sizes (CUDA events, 5 launches after a
 warm one, each with its OP_NONE prefill of ops, which copies that write only
 the slots they visit need); the script prints ms a launch and cycles a step
 of the longest walk at the SM clock nvidia-smi reports.
+
+--kernel vote_corridor, --kernel chain_emit: each A.cu is a whole copy of
+csrc/engine.cu (keep a copy of an earlier engine.cu among them as the
+yardstick).  Every copy is built into a library of its own and held, with
+the package's kernel, against the plain version (vote_corridor_plain,
+chain_emit_plain) on one 16-row batch of the main path's stage 01
+(chip_smoke.main_batch, top_k 4) and on chip_smoke.engine_tile_sets (the
+vote tile's edge at top_k 1, 4 and 8), exactly; each launch is handed the
+(key_q, key_t) group starts _vote_emit makes (group_starts) and the exact
+group count G.  Then the package's kernel and every copy are timed in
+turns, in the order given and in reverse, on the main path's batch and on
+the tile-edge groups (CUDA events around 5 launches after a warm one, the
+device asleep ~1 ms first so that the host's launch time is not measured);
+the package's kernel also as its wrapper launches it, with G = A.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -377,6 +393,87 @@ def main_wave_fast_tb(srcs) -> int:
     return 0
 
 
+def main_engine(srcs, kernel) -> int:
+    """--kernel vote_corridor or chain_emit: copies of csrc/engine.cu, each
+    launched through the engine's own launch helper with its library."""
+    import numpy as np
+    import torch
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.overlap import engine as E
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    argtypes = ([vp] * 7 + [ci, ci, ci, vp] if kernel == "vote_corridor"
+                else [vp] * 7 + [ctypes.c_longlong, ci, ci, ci, ci, ci,
+                                 ctypes.c_float, vp])
+    c.phase_env()
+    _build.build(native=False)
+    libs = {"package": _build.kernels()}
+    libs.update(build_copies(_build.find_nvcc(), _build.NVCC_FLAGS,
+                             tempfile.mkdtemp(prefix="chip_variants_"), srcs,
+                             "ndt_" + kernel, argtypes))
+    d = torch.device("cuda")
+    s1 = c.STAGE01
+    kw = dict(k=s1["k"], min_cnt=s1["min_cnt"], min_span=s1["min_span"])
+    mb = c.main_batch(d)
+    sets = [("main-path batch", E.engine_anchor(*mb["args"],
+                                                max_occ=s1["max_occ"]),
+             s1["top_k"])]
+    sets += [(f"{tag}, top_k {top_k}", tuple(torch.from_numpy(x).to(d)
+                                            for x in a), top_k)
+             for tag, a, top_k, _ in c.engine_tile_sets(
+                 np.random.default_rng(19))]
+
+    def inputs(anchors, top_k):
+        """(launch function of (lib, G), the plain version's outputs,
+        exact G, A) on these anchors."""
+        vi = E._vote_inputs(*anchors, diag_shift=8)
+        gstart = E.group_starts(vi[0], vi[1])
+        A = vi[0].shape[0]
+        G = int((gstart < A).sum())
+        vp_ = E.vote_corridor_plain(*vi[:5], diag_shift=8, top_k=top_k)
+        if kernel == "vote_corridor":
+            out = (torch.empty_like(vi[1]), torch.empty_like(vi[4]))
+            return (lambda lib, g: E._vote_launch(
+                lib, *vi[1:5], gstart, *out, g, 8, top_k) or out), vp_, G, A
+        chi = E._chain_inputs(vi[0], *vp_, vi[5])
+        out = (torch.empty(A, dtype=torch.bool, device=d),
+               torch.empty((8, A), dtype=torch.int64, device=d))
+        return (lambda lib, g: E._chain_launch(
+            lib, *chi, gstart, *out, g, top_k=top_k, **kw) or out), \
+            E.chain_emit_plain(*chi, top_k=top_k, **kw), G, A
+
+    prepared = {}
+    for tag, anchors, top_k in sets:
+        run, want, G, A = inputs(anchors, top_k)
+        for name, lib in libs.items():
+            for g in ((G, A) if name == "package" else (G,)):
+                got = run(lib, g)
+                if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                    raise RuntimeError(f"{name} differs from {kernel}_plain "
+                                       f"on '{tag}' (G = {g})")
+        log(f"[variants] {tag}: every copy equal to {kernel}_plain "
+            f"(A={A}, {G} groups)")
+        if tag == "main-path batch" or tag.endswith("top_k 4"):
+            prepared[tag] = (run, G, A)
+    times = {}
+    order = list(libs)
+    for names in (order, order[::-1]):
+        for name in names:
+            for tag, (run, G, A) in prepared.items():
+                gs = (("G", G), ("A", A)) if name == "package" else (("G", G),)
+                for gn, g in gs:
+                    ms = c._events_ms(lambda: run(libs[name], g), 5)
+                    times.setdefault((name, gn, tag), []).append(ms)
+    for tag, (run, G, A) in prepared.items():
+        for (name, gn, t_), t in times.items():
+            if t_ == tag:
+                log(f"[variants] {kernel} {name}"
+                    f"{' (grid from A, as the wrapper)' if gn == 'A' else ''}"
+                    f", {tag} (A={A}, {G} groups): "
+                    + " / ".join(f"{x:.4f}" for x in t) + " ms")
+    return 0
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -388,6 +485,9 @@ def main(argv) -> int:
         return main_forward(argv[2:], argv[1])
     if argv[:2] == ["--kernel", "wave_fast_tb"]:
         return main_wave_fast_tb(argv[2:])
+    if argv[:1] == ["--kernel"] and argv[1:2] in (["vote_corridor"],
+                                                  ["chain_emit"]):
+        return main_engine(argv[2:], argv[1])
     do_lat = "--latency" in argv
     srcs = [a for a in argv if a != "--latency"]
     import chip_smoke as c

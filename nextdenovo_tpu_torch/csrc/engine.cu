@@ -20,26 +20,45 @@
 //                   that writes the taken anchors compacted, in flat
 //                   (minimizer, occurrence) order: torch.nonzero's order.
 //   vote_corridor   one warp a (key_q, key_t) group of the first sort's
-//                   order.  The group's anchors are sorted by key_b, so
-//                   each diagonal bin is a run; a run's first anchor finds
-//                   the run's end by binary search, which gives the bin's
-//                   count.  top_k rounds of an argmax over the runs (the
-//                   first run on a tie: the warp takes the max of
-//                   (count + 1) << 32 | ~offset), a round's bin kept where
-//                   bc * 2 >= prim_cnt and bc > 0, bins within 2 of an
-//                   earlier round's bin counting -1; then each anchor's
-//                   nearest kept corridor within +-width (di < bestd, the
-//                   earlier round on a tie), written as key_t2 and qp2_key.
-//                   Nothing is kept per bin or per anchor: a group of any
-//                   size (a repeat, a 1 Mb read) is a loop over its anchors
-//                   in 32s, with no shared memory.
+//                   order, warps walking groups g, g + warps, ... of the
+//                   starts _vote_emit makes once on the device (the grid is
+//                   sized from A; a warp leaves at a start equal to A).  The
+//                   group's anchors are sorted by key_b, so each diagonal
+//                   bin is a run.  One pass in 32s marks run starts by
+//                   comparing neighbours (a shuffle, the previous 32's last
+//                   bin carried) and gives each run its count as the next
+//                   start's offset less its own (the ballot's next bit, or
+//                   the next 32 with a start); each run's argmax key
+//                   (count + 1) << 32 | ~offset and its bin less the
+//                   group's first go into the warp's tile in shared memory
+//                   (TILE runs, 12 B each).  top_k rounds of a warp argmax
+//                   over the tile (the first run on a tie, as the key
+//                   orders them), a round's bin kept where bc * 2 >=
+//                   prim_cnt and bc > 0; the runs within 2 of a round's bin
+//                   are blanked in place (count -1) before the next round.
+//                   A group of more runs than the tile (or of bins 2^31
+//                   apart) takes the loop instead: every round walks its
+//                   runs in 32s, a run's end a binary search away.  The
+//                   rounds are unrolled over MAX_TOP_K, so their bins stay in
+//                   registers (no stack frame).  Then each anchor's nearest
+//                   kept corridor within +-width (di < bestd, the earlier
+//                   round on a tie), written as key_t2 and qp2_key.
 //   chain_emit      one warp a (key_q, key_t) group of the second sort's
-//                   order.  Its corridor segments (g2: at most top_k + 1,
-//                   corridor 0 first) are walked in order; per segment the
-//                   warp sums the quantised link scores and takes cnt2 and
-//                   the extents; corridor 0's query extent gives the
-//                   group's qs0 / qe0; a segment's last anchor gets the
-//                   emit flag and the record, every other anchor zeros.
+//                   order, on the same starts: the second sort permutes
+//                   anchors only inside a group.  Within a group the
+//                   anchors are sorted by corridor (kt2 less the group's
+//                   key_t * (top_k + 1)), so a corridor segment is the run
+//                   of one corridor.  One pass over the group in 32s (the
+//                   next 32's loads issued before this one is reduced): each
+//                   anchor's link to the one before it (a shuffle, or the
+//                   previous 32's last), each anchor written zero, and for
+//                   each corridor present in the 32 the warp's reductions
+//                   (__reduce_*_sync on int32: link sum, near count, query
+//                   and target extents) added to lane c's running values of
+//                   corridor c.  At the group's end lane c writes corridor
+//                   c's record at its segment's last anchor, where it
+//                   passes; corridor 0's query extent, shuffled from lane
+//                   0, suppresses the others.
 //
 // The one float step, the link score
 //     beta = 0.01*k*dd + 0.5*log2(dd + 1),  round(max(alpha - beta, 0) * 8),
@@ -47,18 +66,25 @@
 // nothing into an FMA: PyTorch's elementwise ops round after every step.
 // The constant is (float)(0.01 * k), as PyTorch casts its Python scalar;
 // log2f without fast math, rintf for torch.round (half to even).  Integers
-// are int64 throughout, as in the plain versions (diag may be negative and
-// >> stays arithmetic).
+// are int64, as in the plain versions (diag may be negative and >> stays
+// arithmetic), except that chain_emit reduces the positions of a 32 as
+// int32: positions fit the reference's int32 arrays, and I32MAX marks an
+// anchor without a corridor.
 //
 // Bound on this card: bytes.  engine_anchor reads the minimizers, the index
 // entries its occurrences touch (plus ~log2 H probes a minimizer, mostly in
 // L2) and writes 40 B an anchor; vote_corridor reads 32 B and writes 16 B an
-// anchor, top_k + 1 times over a group's key_b; chain_emit reads 32 B and
-// writes 65 B an anchor.  At the main path's batch (~10^5 anchors) each is a
-// few MB, so a launch is latency more than bandwidth; the gain over the
-// plain versions is the launch count.
+// anchor; chain_emit reads 32 B and writes 65 B an anchor.  At the main
+// path's batch (~4 x 10^4 anchors, groups of 1 to ~200 anchors and 1 to 3
+// runs) each is well under a MB, so a launch is latency, not bandwidth: the
+// designs keep each group's chain of dependent loads short (one pass over
+// key_b, the rounds in shared memory and registers; one pass over the
+// corridor segments) and the wrappers free of host syncs.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -68,6 +94,8 @@ constexpr int64_t I32MAX = 2147483647LL;
 constexpr int64_t INF = 1LL << 30;
 constexpr int MAX_TOP_K = 8;
 constexpr int WARPS = 4;                  // groups (warps) a block
+constexpr int TILE = 256;                // runs a warp's vote tile holds
+constexpr int VOTE_SMEM = WARPS * TILE * (8 + 4);  // keys, bins
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 __device__ __forceinline__ int64_t mn(int64_t a, int64_t b) { return a < b ? a : b; }
@@ -171,57 +199,171 @@ __global__ void engine_anchor_kernel(
 // ---------------------------------------------------------------------------
 // vote_corridor
 
+// a run's argmax key: the larger count wins, then the smaller offset
+__device__ __forceinline__ unsigned long long run_key(int64_t cnt,
+                                                      int64_t off) {
+    return ((unsigned long long)(cnt + 1) << 32)
+           | (unsigned long long)(FULL - (unsigned)off);
+}
+
+// The group's runs into the warp's tile: a run's key at its number, its bin
+// less the group's first at the same number in tbin.  One pass in 32s; a run
+// starts where key_b >> 10 changes, and its count is the next start's offset
+// less its own: the next start in the same 32 by the ballot's bits, else the
+// run stays open until the next 32 with a start (or the group's end) closes
+// it.  Returns the number of runs, or TILE + 1 once they outgrow the tile
+// (the pass stops there).
+__device__ __forceinline__ int vote_runs(const int64_t* __restrict__ key_b,
+                                         int64_t s, int64_t e, int64_t bin0,
+                                         unsigned long long* tkey, int* tbin,
+                                         int lane) {
+    int R = 0;                            // runs so far (warp-uniform)
+    int open_idx = 0;                     // the open run: number, offset
+    int64_t open_off = 0, carry = 0;      // carry: the last 32's last bin
+    int64_t kb_next = s + lane < e ? key_b[s + lane] : 0;
+    for (int64_t base = s; base < e; base += 32) {
+        const int64_t i = base + lane;
+        const bool in = i < e;
+        const int64_t d = kb_next >> 10;
+        if (base + 32 + lane < e) kb_next = key_b[base + 32 + lane];
+        int64_t dp = __shfl_up_sync(FULL, d, 1);
+        if (lane == 0) dp = carry;
+        const bool st = in && (i == s || d != dp);
+        const unsigned m = __ballot_sync(FULL, st);
+        if (m) {
+            if (base != s && lane == 0 && open_idx < TILE)
+                tkey[open_idx] = run_key(base + __ffs(m) - 1 - s - open_off,
+                                         open_off);
+            if (st) {
+                const int idx = R + __popc(m & ((1u << lane) - 1));
+                const unsigned later = m & ~((2u << lane) - 1u);
+                if (idx < TILE) {
+                    tbin[idx] = (int)(d - bin0);
+                    if (later)
+                        tkey[idx] = run_key(__ffs(later) - 1 - lane, i - s);
+                }
+            }
+            const int hi = 31 - __clz(m);
+            open_idx = R + __popc(m) - 1;
+            open_off = base + hi - s;
+            R += __popc(m);
+            if (R > TILE) return TILE + 1;
+        }
+        carry = __shfl_sync(FULL, d, 31);
+    }
+    if (lane == 0) tkey[open_idx] = run_key(e - s - open_off, open_off);
+    return R;
+}
+
 __global__ void __launch_bounds__(WARPS * 32) vote_corridor_kernel(
     const int64_t* __restrict__ key_t, const int64_t* __restrict__ key_b,
     const int64_t* __restrict__ diag, const int64_t* __restrict__ qpos,
-    const int64_t* __restrict__ gstart,  // (G + 1,): group starts, then A
+    const int64_t* __restrict__ gstart,  // (G + 1,): starts, then A on
     int64_t* __restrict__ key_t2, int64_t* __restrict__ qp2_key,
     int G, int diag_shift, int top_k) {
-    const int g = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    extern __shared__ unsigned long long vote_tile[];
+    const int w = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-    if (g >= G) return;                   // the whole warp leaves together
-    const int64_t s = gstart[g], e = gstart[g + 1];
-    int64_t bb[MAX_TOP_K];
-    bool ok[MAX_TOP_K];
-    int64_t prim = 0;
-    for (int r = 0; r < top_k; ++r) {
-        unsigned long long best = 0;
-        for (int64_t i = s + lane; i < e; i += 32) {
-            const int64_t d = key_b[i] >> 10;
-            if (i != s && (key_b[i - 1] >> 10) == d) continue;  // not a run start
-            // the run of bin d ends at the first key_b >= (d + 1) << 10
-            int64_t cur = lower_bound(key_b, i + 1, e, (d + 1) * 1024) - i;
-            for (int j = 0; j < r; ++j)
-                if (ab(d - bb[j]) <= 2) cur = -1;
-            const unsigned long long p =
-                ((unsigned long long)(cur + 1) << 32)
-                | (unsigned long long)(FULL - (unsigned)(i - s));
-            best = p > best ? p : best;
-        }
-        best = warp_max_u(best);
-        const int64_t bc = (int64_t)(best >> 32) - 1;
-        const int64_t first = s + (int64_t)(FULL - (unsigned)(best & FULL));
-        bb[r] = key_b[first] >> 10;
-        if (r == 0) prim = bc;
-        ok[r] = bc * 2 >= prim && bc > 0;
-    }
+    unsigned long long* tkey = vote_tile + w * TILE;
+    int* tbin = reinterpret_cast<int*>(vote_tile + WARPS * TILE) + w * TILE;
     const int64_t width = 1LL << diag_shift;
     const int64_t kc = top_k + 1;
-    for (int64_t i = s + lane; i < e; i += 32) {
-        const int64_t dg = diag[i];
-        int corr = top_k;
-        int64_t bestd = INF;
-        for (int r = 0; r < top_k; ++r) {
-            if (!ok[r]) continue;
-            const int64_t center = (bb[r] - (1LL << 20)) * width + width / 2;
-            const int64_t di = ab(dg - center);
-            if (di <= width && di < bestd) {
-                corr = r;
-                bestd = di;
+    for (int g = blockIdx.x * WARPS + w; g < G; g += gridDim.x * WARPS) {
+        const int64_t s = gstart[g], e = gstart[g + 1];
+        if (s >= e) break;                // past the last group (warp-uniform)
+        const int64_t bin0 = key_b[s] >> 10;
+        // bins relative to the first fit 32 bits (positions are < 2^30)
+        int R = TILE + 1;
+        if ((key_b[e - 1] >> 10) - bin0 <= I32MAX)
+            R = vote_runs(key_b, s, e, bin0, tkey, tbin, lane);
+        __syncwarp();
+        int64_t bb[MAX_TOP_K];
+        unsigned ok = 0;                  // bit r: round r's bin is kept
+        int64_t prim = 0;
+        if (R <= TILE) {
+            // top_k rounds of a warp argmax over the tile; a round's bin
+            // blanks the runs within 2 of it in place (count -1) before the
+            // next round reads them
+            int brel = 0;
+#pragma unroll
+            for (int r = 0; r < MAX_TOP_K; ++r) {
+                if (r < top_k) {
+                    unsigned long long best = 0;
+                    int bbin = 0;
+                    for (int j = lane; j < R; j += 32) {
+                        unsigned long long kj = tkey[j];
+                        const int b = tbin[j];
+                        if (r > 0 && abs(b - brel) <= 2 && (kj >> 32)) {
+                            kj &= FULL;
+                            tkey[j] = kj;
+                        }
+                        if (kj > best) {
+                            best = kj;
+                            bbin = b;
+                        }
+                    }
+                    for (int o = 16; o; o >>= 1) {
+                        const unsigned long long ob =
+                            __shfl_xor_sync(FULL, best, o);
+                        const int obin = __shfl_xor_sync(FULL, bbin, o);
+                        if (ob > best) {
+                            best = ob;
+                            bbin = obin;
+                        }
+                    }
+                    const int64_t bc = (int64_t)(best >> 32) - 1;
+                    brel = bbin;
+                    bb[r] = bin0 + bbin;
+                    if (r == 0) prim = bc;
+                    ok |= (unsigned)(bc * 2 >= prim && bc > 0) << r;
+                }
+            }
+        } else {
+            // more runs than the tile holds: every round walks the group's
+            // runs in 32s, each run's end a binary search away
+#pragma unroll
+            for (int r = 0; r < MAX_TOP_K; ++r) {
+                if (r < top_k) {
+                    unsigned long long best = 0;
+                    for (int64_t i = s + lane; i < e; i += 32) {
+                        const int64_t d = key_b[i] >> 10;
+                        if (i != s && (key_b[i - 1] >> 10) == d) continue;
+                        int64_t cur =
+                            lower_bound(key_b, i + 1, e, (d + 1) * 1024) - i;
+#pragma unroll
+                        for (int j = 0; j < MAX_TOP_K; ++j)
+                            if (j < r && ab(d - bb[j]) <= 2) cur = -1;
+                        const unsigned long long p = run_key(cur, i - s);
+                        best = p > best ? p : best;
+                    }
+                    best = warp_max_u(best);
+                    const int64_t bc = (int64_t)(best >> 32) - 1;
+                    bb[r] = key_b[s + (int64_t)(FULL - (unsigned)(best & FULL))]
+                            >> 10;
+                    if (r == 0) prim = bc;
+                    ok |= (unsigned)(bc * 2 >= prim && bc > 0) << r;
+                }
             }
         }
-        key_t2[i] = key_t[i] * kc + corr;
-        qp2_key[i] = corr < top_k ? qpos[i] : I32MAX;
+        for (int64_t i = s + lane; i < e; i += 32) {
+            const int64_t dg = diag[i];
+            int corr = top_k;
+            int64_t bestd = INF;
+#pragma unroll
+            for (int r = 0; r < MAX_TOP_K; ++r) {
+                if (r < top_k && ((ok >> r) & 1)) {
+                    const int64_t di =
+                        ab(dg - ((bb[r] - (1LL << 20)) * width + width / 2));
+                    if (di <= width && di < bestd) {
+                        corr = r;
+                        bestd = di;
+                    }
+                }
+            }
+            key_t2[i] = key_t[i] * kc + corr;
+            qp2_key[i] = corr < top_k ? qpos[i] : I32MAX;
+        }
+        __syncwarp();                     // the tile is the next group's
     }
 }
 
@@ -242,73 +384,128 @@ __device__ __forceinline__ int64_t link_q(int64_t dq, int64_t dt, int k,
 __global__ void __launch_bounds__(WARPS * 32) chain_emit_kernel(
     const int64_t* __restrict__ kq2, const int64_t* __restrict__ kt2,
     const int64_t* __restrict__ qp2, const int64_t* __restrict__ tp2,
-    const int64_t* __restrict__ gstart,  // (G + 1,): group starts, then A
+    const int64_t* __restrict__ gstart,  // (G + 1,): starts, then A on
     uint8_t* __restrict__ emit, int64_t* __restrict__ rec,  // (A,), (8, A)
     int64_t A, int G, int k, int top_k, int min_cnt, int min_span,
     float c01k) {
-    const int g = blockIdx.x * WARPS + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
-    if (g >= G) return;
-    const int64_t s = gstart[g], e = gstart[g + 1];
     const int64_t kc = top_k + 1;
-    const int64_t qname = kq2[s];
-    int64_t qs0 = -INF, qe0 = -INF;
-    int64_t a = s;
-    while (a < e) {                       // one corridor segment [a, b)
-        const int64_t kt = kt2[a];
-        int64_t sum = 0, cnt = 0, qmin = INF, qmax = -INF, tmin = INF,
-                tmax = -INF;
-        int64_t b = e;
-        for (int64_t base = a; base < e; base += 32) {
+    constexpr int QINF = 1 << 30;         // the plain version's inf
+    for (int g = blockIdx.x * WARPS + (threadIdx.x >> 5); g < G;
+         g += gridDim.x * WARPS) {
+        const int64_t s = gstart[g], e = gstart[g + 1];
+        if (s >= e) break;                // past the last group (warp-uniform)
+        const int64_t qname = kq2[s];
+        const int64_t key_tq = floordiv(kt2[s], kc);
+        const int64_t kbase = key_tq * kc;
+        // lane c keeps corridor c's segment: link sum, near count, extents,
+        // its last anchor and whether that one is near
+        int64_t sum = 0, last = -1;
+        int cnt = 0, qmin = INT_MAX, qmax = INT_MIN, tmin = INT_MAX,
+            tmax = INT_MIN;
+        bool lnear = false;
+        int64_t cq = I32MAX, ct = 0;      // the previous 32's last anchor
+        int cc = -1;
+        int64_t nq = s + lane < e ? qp2[s + lane] : I32MAX;
+        int64_t nt = s + lane < e ? tp2[s + lane] : 0;
+        int64_t nk = s + lane < e ? kt2[s + lane] : kbase;
+        for (int64_t base = s; base < e; base += 32) {
             const int64_t i = base + lane;
-            const bool in = i < e && kt2[i] == kt;  // a prefix of the 32
-            const unsigned mask = __ballot_sync(FULL, in);
-            if (in) {
-                const int64_t q = qp2[i], t = tp2[i];
-                if (q != I32MAX) {
-                    ++cnt;
-                    qmin = mn(qmin, q);
-                    qmax = mx(qmax, q);
-                    tmin = mn(tmin, t);
-                    tmax = mx(tmax, t);
-                    if (i > a) {          // a link inside the segment
-                        const int64_t pq = qp2[i - 1];
-                        const int64_t dq = q - pq, dt = t - tp2[i - 1];
-                        if (pq != I32MAX && dq > 0 && dt > 0)
-                            sum += link_q(dq, dt, k, c01k);
-                    }
+            const bool in = i < e;
+            const int64_t q = nq, t = nt;
+            const int c = (int)(nk - kbase);  // the corridor, 0..top_k
+            const int64_t j = base + 32 + lane;
+            if (j < e) {                  // the next 32's loads in flight
+                nq = qp2[j];
+                nt = tp2[j];
+                nk = kt2[j];
+            }
+            int64_t pq = __shfl_up_sync(FULL, q, 1);
+            int64_t pt = __shfl_up_sync(FULL, t, 1);
+            int pc = __shfl_up_sync(FULL, c, 1);
+            if (lane == 0) {
+                pq = cq;
+                pt = ct;
+                pc = cc;
+            }
+            const bool near = in && q != I32MAX;
+            int lq = 0;
+            if (near && i > s && pc == c && pq != I32MAX && q > pq && t > pt)
+                lq = (int)link_q(q - pq, t - pt, k, c01k);
+            if (in) {                     // the records go in at the end
+                emit[i] = 0;
+#pragma unroll
+                for (int f = 0; f < 8; ++f) rec[f * A + i] = 0;
+            }
+            const unsigned nearm = __ballot_sync(FULL, near);
+            unsigned present = __reduce_or_sync(FULL, in ? 1u << c : 0u);
+            while (present) {             // each corridor in this 32
+                const int x = __ffs(present) - 1;
+                present &= present - 1;
+                const bool mine = in && c == x;
+                const unsigned mm = __ballot_sync(FULL, mine);
+                const int hi = 31 - __clz(mm);
+                const int rsum = __reduce_add_sync(FULL, mine ? lq : 0);
+                const int rqmin = __reduce_min_sync(
+                    FULL, mine ? (near ? (int)q : QINF) : INT_MAX);
+                const int rqmax = __reduce_max_sync(
+                    FULL, mine ? (near ? (int)q : -QINF) : INT_MIN);
+                const int rtmin = __reduce_min_sync(
+                    FULL, mine ? (near ? (int)t : QINF) : INT_MAX);
+                const int rtmax = __reduce_max_sync(
+                    FULL, mine ? (near ? (int)t : -QINF) : INT_MIN);
+                if (lane == x) {
+                    sum += rsum;
+                    cnt += __popc(mm & nearm);
+                    qmin = min(qmin, rqmin);
+                    qmax = max(qmax, rqmax);
+                    tmin = min(tmin, rtmin);
+                    tmax = max(tmax, rtmax);
+                    last = base + hi;
+                    lnear = (nearm >> hi) & 1;
                 }
             }
-            if (mask != FULL) {
-                b = base + __popc(mask);
-                break;
+            cq = __shfl_sync(FULL, q, 31);
+            ct = __shfl_sync(FULL, t, 31);
+            cc = __shfl_sync(FULL, c, 31);
+        }
+        // corridor 0's query extent, where it has a near anchor, suppresses
+        // the secondary corridors that overlap it by half
+        const int cnt0 = __shfl_sync(FULL, cnt, 0);
+        const int q0min = __shfl_sync(FULL, qmin, 0);
+        const int q0max = __shfl_sync(FULL, qmax, 0);
+        const int64_t qs0 = cnt0 > 0 ? q0min : -INF;
+        const int64_t qe0 = cnt0 > 0 ? (int64_t)q0max + k : -INF;
+        __syncwarp();                     // the zeros before the records
+        if (last >= 0) {
+            const int64_t qs = qmin, qe = (int64_t)qmax + k;
+            const int64_t ts = tmin, te = (int64_t)tmax + k;
+            const int64_t oq = mn(qe, qe0) - mx(qs, qs0);
+            const bool sec_ok = lane == 0 || oq * 2 < qe - qs;
+            const int64_t span = mn(qe - qs, te - ts);
+            if (lnear && sec_ok && cnt >= min_cnt && span >= min_span) {
+                const int64_t vals[8] = {qname, key_tq & 1, qs, qe,
+                                         key_tq >> 1, ts, te,
+                                         mn(floordiv(sum, 8) + k, span)};
+                emit[last] = 1;
+#pragma unroll
+                for (int f = 0; f < 8; ++f) rec[f * A + last] = vals[f];
             }
         }
-        sum = warp_sum(sum);
-        cnt = warp_sum(cnt);
-        const int64_t qs = warp_min(qmin), qe = warp_max(qmax) + k;
-        const int64_t ts = warp_min(tmin), te = warp_max(tmax) + k;
-        const int64_t key_tq = floordiv(kt, kc);
-        const int64_t corr = kt - key_tq * kc;
-        if (corr == 0 && cnt > 0) {       // corridor 0 comes first
-            qs0 = qs;
-            qe0 = qe;
-        }
-        const int64_t oq = mn(qe, qe0) - mx(qs, qs0);
-        const bool sec_ok = corr == 0 || oq * 2 < qe - qs;
-        const int64_t span = mn(qe - qs, te - ts);
-        const bool em = qp2[b - 1] != I32MAX && sec_ok && cnt >= min_cnt
-                        && span >= min_span;
-        const int64_t vals[8] = {qname, key_tq & 1, qs, qe, key_tq >> 1, ts,
-                                 te, mn(floordiv(sum, 8) + k, span)};
-        for (int64_t i = a + lane; i < b; i += 32) {
-            const bool here = em && i == b - 1;
-            emit[i] = here;
-#pragma unroll
-            for (int f = 0; f < 8; ++f) rec[f * A + i] = here ? vals[f] : 0;
-        }
-        a = b;
     }
+}
+
+// resident blocks of a kernel on the current device: the grid's cap (a warp
+// walks groups g, g + warps, ...)
+int resident_blocks(const void* kernel, int smem) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess
+        || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+               != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, kernel, WARPS * 32, smem) != cudaSuccess)
+        return 0;
+    return sms * (per_sm > 0 ? per_sm : 1);
 }
 
 }  // namespace
@@ -341,7 +538,19 @@ int ndt_vote_corridor(const void* key_t, const void* key_b, const void* diag,
                       void* stream) {
     if (G <= 0) return 0;
     if (top_k < 1 || top_k > MAX_TOP_K) return (int)cudaErrorInvalidValue;
-    vote_corridor_kernel<<<(G + WARPS - 1) / WARPS, WARPS * 32, 0,
+    static int cap = 0;
+    if (!cap) {
+        if (VOTE_SMEM > 48 * 1024) {
+            const cudaError_t rc = cudaFuncSetAttribute(
+                vote_corridor_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, VOTE_SMEM);
+            if (rc != cudaSuccess) return (int)rc;
+        }
+        cap = resident_blocks((const void*)vote_corridor_kernel, VOTE_SMEM);
+        if (!cap) return (int)cudaGetLastError();
+    }
+    const int blocks = (int)std::min<int64_t>((G + WARPS - 1) / WARPS, cap);
+    vote_corridor_kernel<<<blocks, WARPS * 32, VOTE_SMEM,
                            (cudaStream_t)stream>>>(
         (const int64_t*)key_t, (const int64_t*)key_b, (const int64_t*)diag,
         (const int64_t*)qpos, (const int64_t*)gstart, (int64_t*)key_t2,
@@ -354,8 +563,14 @@ int ndt_chain_emit(const void* kq2, const void* kt2, const void* qp2,
                    long long A, int G, int k, int top_k, int min_cnt,
                    int min_span, float c01k, void* stream) {
     if (G <= 0) return 0;
-    chain_emit_kernel<<<(G + WARPS - 1) / WARPS, WARPS * 32, 0,
-                        (cudaStream_t)stream>>>(
+    if (top_k < 1 || top_k > MAX_TOP_K) return (int)cudaErrorInvalidValue;
+    static int cap = 0;
+    if (!cap) {
+        cap = resident_blocks((const void*)chain_emit_kernel, 0);
+        if (!cap) return (int)cudaGetLastError();
+    }
+    const int blocks = (int)std::min<int64_t>((G + WARPS - 1) / WARPS, cap);
+    chain_emit_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
         (const int64_t*)kq2, (const int64_t*)kt2, (const int64_t*)qp2,
         (const int64_t*)tp2, (const int64_t*)gstart, (uint8_t*)emit,
         (int64_t*)rec, (int64_t)A, G, k, top_k, min_cnt, min_span, c01k);

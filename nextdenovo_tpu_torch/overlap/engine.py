@@ -20,11 +20,19 @@ lexsorts between them:
                   the taken anchors compacted (a count pass, a cumsum, a
                   write pass);
   vote_corridor   replaces _vote_emit's vote: per (query, target, strand)
-                  group the bin counts, top_k corridors and each anchor's
-                  corridor, one warp a group;
+                  group the bin counts (counted once into a tile in shared
+                  memory), top_k corridors and each anchor's corridor, one
+                  warp a group;
   chain_emit      replaces _vote_emit's chain scoring and emission: per
                   group the corridor segments' link scores, extents and
-                  suppression, and the emit flag, one warp a group.
+                  suppression, and the emit flag, one warp a group walking
+                  it once.
+
+_vote_emit finds the groups' starts once, on the device with no host sync
+(group_starts), and hands both kernels the same: the second sort permutes
+anchors only inside a (query, target, strand) group.  A _match_block call
+syncs with the host twice (engine_anchor's anchor count, the emitted
+records' count).
 
 Arrays are sized by their content: minimizer and anchor lists are compacted
 (padding entries never take part in any segment of valid anchors, so the
@@ -212,6 +220,7 @@ def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
 # (ops/segment.py); the kernels give the same tensors exactly.
 
 MAX_TOP_K = 8             # corridors a group the vote kernel keeps
+VOTE_TILE = 256           # runs of a group the vote kernel's tile holds
 
 
 def engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
@@ -240,6 +249,18 @@ def engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
     posst = t_posst.reshape(-1)[sel]
     return (q_grid[row], t_rid.reshape(-1)[sel], posst & POS_MASK,
             (qm_strand[row] ^ (posst >> STRAND_BIT)) & 1, qpos[row])
+
+
+def _anchor_launch(lib, ins, lo_cnt, counts, out, M, H, A, max_occ, write):
+    """One launch of engine_anchor_kernel (count or write pass) on lo_cnt's
+    device: ins are the ten inputs' data pointers, out the (5, A) output's
+    (None in the count pass)."""
+    dev = lo_cnt.device
+    with torch.cuda.device(dev):
+        rc = lib.ndt_engine_anchor(
+            *ins, lo_cnt.data_ptr(), counts.data_ptr(), out, M, H, A,
+            max_occ, write, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("engine_anchor", rc)
 
 
 def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
@@ -280,11 +301,8 @@ def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
                                   idx_rid, idx_pos)]
 
     def launch(counts, out, A, write):
-        with torch.cuda.device(dev):
-            rc = lib.ndt_engine_anchor(
-                *ins, lo_cnt.data_ptr(), counts.data_ptr(), out, M, H, A,
-                max_occ, write, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_launch("engine_anchor", rc)
+        _anchor_launch(lib, ins, lo_cnt, counts, out, M, H, A, max_occ,
+                       write)
         _build.LAUNCHES["engine_anchor"] += 1
 
     if M:
@@ -297,12 +315,17 @@ def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
     return tuple(out)
 
 
-def _group_starts(starts):
-    """(G + 1,) int64: the indices where `starts` is set, then its length."""
-    idx = torch.nonzero(starts)[:, 0]
-    end = torch.full((1,), starts.shape[0], dtype=idx.dtype,
-                     device=starts.device)
-    return torch.cat([idx, end])
+def group_starts(key_q, key_t):
+    """(A + 1,) int64 on key_q's device: the index where each run of equal
+    (key_q, key_t) begins, in order, then A in every slot past the last
+    run's.  No host sync: a start flag compacted into a buffer of fixed
+    size (nonzero_static), five launches."""
+    A = key_q.shape[0]
+    start = torch.ones(A, dtype=torch.bool, device=key_q.device)
+    if A > 1:
+        torch.logical_or(key_q[1:] != key_q[:-1], key_t[1:] != key_t[:-1],
+                         out=start[1:])
+    return torch.nonzero_static(start, size=A + 1, fill_value=A)[:, 0]
 
 
 def vote_corridor_plain(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
@@ -341,7 +364,7 @@ def vote_corridor_plain(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
 
 
 def vote_corridor(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
-                  top_k: int):
+                  top_k: int, gstart=None):
     """Corridor vote over anchors in the first sort's order (key_q, key_t,
     key_b; (A,) int64 each, with each anchor's diag and qpos): per (key_q,
     key_t) group the top_k best-voted diagonal bins, and each anchor's
@@ -350,7 +373,8 @@ def vote_corridor(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
     anchor has a corridor, else I32MAX.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, one
-    warp a group."""
+    warp a group, over gstart (group_starts(key_q, key_t), made here when
+    not given)."""
     if key_q.device.type == "cpu":
         return vote_corridor_plain(key_q, key_t, key_b, diag, qpos,
                                    diag_shift=diag_shift, top_k=top_k)
@@ -363,20 +387,41 @@ def vote_corridor(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
                     ("diag", diag), ("qpos", qpos)):
         check_tensor(name, t, (A,), torch.int64, dev)
     lib = _build.kernels()
-    gstart = _group_starts(segment_starts(key_q) | segment_starts(key_t))
-    G = gstart.shape[0] - 1
+    gstart = _kernel_starts(gstart, A, dev,
+                            lambda: group_starts(key_q, key_t))
     key_t2 = torch.empty_like(key_t)
     qp2_key = torch.empty_like(qpos)
-    if G:
-        with torch.cuda.device(dev):
-            rc = lib.ndt_vote_corridor(
-                key_t.data_ptr(), key_b.data_ptr(), diag.data_ptr(),
-                qpos.data_ptr(), gstart.data_ptr(), key_t2.data_ptr(),
-                qp2_key.data_ptr(), G, diag_shift, top_k,
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_launch("vote_corridor", rc)
+    if A:
+        _vote_launch(lib, key_t, key_b, diag, qpos, gstart, key_t2, qp2_key,
+                     A, diag_shift, top_k)
         _build.LAUNCHES["vote_corridor"] += 1
     return key_t2, qp2_key
+
+
+def _kernel_starts(gstart, A: int, dev, make):
+    """A kernel's group starts: gstart checked, or make() where it is None.
+    A stays under 2^31 (the kernels count groups in int)."""
+    if A > I32MAX:
+        raise ValueError(f"engine: {A} anchors in one launch (at most "
+                         f"{I32MAX})")
+    if gstart is None:
+        return make()
+    check_tensor("gstart", gstart, (A + 1,), torch.int64, dev)
+    return gstart
+
+
+def _vote_launch(lib, key_t, key_b, diag, qpos, gstart, key_t2, qp2_key, G,
+                 diag_shift, top_k):
+    """One launch of vote_corridor_kernel on key_t's device over the groups
+    gstart[:G + 1] bounds (G = A: a warp leaves at a start equal to A)."""
+    dev = key_t.device
+    with torch.cuda.device(dev):
+        rc = lib.ndt_vote_corridor(
+            key_t.data_ptr(), key_b.data_ptr(), diag.data_ptr(),
+            qpos.data_ptr(), gstart.data_ptr(), key_t2.data_ptr(),
+            qp2_key.data_ptr(), G, diag_shift, top_k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("vote_corridor", rc)
 
 
 def chain_emit_plain(kq2, kt2, qp2, tp2, *, k: int, top_k: int,
@@ -435,7 +480,7 @@ def chain_emit_plain(kq2, kt2, qp2, tp2, *, k: int, top_k: int,
 
 
 def chain_emit(kq2, kt2, qp2, tp2, *, k: int, top_k: int, min_cnt: int,
-               min_span: int):
+               min_span: int, gstart=None):
     """Chain score, extents, secondary suppression and emission over
     anchors in the second sort's order (key_q, key_t2, qp2_key, t_pos;
     (A,) int64 each).  Returns (emit, rec): (A,) bool, set at the last
@@ -443,32 +488,44 @@ def chain_emit(kq2, kt2, qp2, tp2, *, k: int, top_k: int, min_cnt: int,
     that record's REC_FIELDS in that column and zeros elsewhere.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel, one
-    warp a (key_q, t_rid * 2 + rel) group."""
+    warp a (key_q, t_rid * 2 + rel) group, over gstart: the starts of those
+    groups, made here when not given.  The second sort permutes anchors only
+    inside a (key_q, key_t) group, so the first sort's group_starts are
+    these groups' starts too, and _vote_emit hands both kernels the same."""
     kw = dict(k=k, top_k=top_k, min_cnt=min_cnt, min_span=min_span)
     if kq2.device.type == "cpu":
         return chain_emit_plain(kq2, kt2, qp2, tp2, **kw)
     dev = kq2.device
     A = kq2.shape[0]
+    if not 1 <= top_k <= MAX_TOP_K:
+        raise ValueError(f"chain_emit: top_k {top_k} outside 1..{MAX_TOP_K}")
     for name, t in (("kq2", kq2), ("kt2", kt2), ("qp2", qp2), ("tp2", tp2)):
         check_tensor(name, t, (A,), torch.int64, dev)
     lib = _build.kernels()
-    gstart = _group_starts(segment_starts(kq2)
-                           | segment_starts(kt2 // (top_k + 1)))
-    G = gstart.shape[0] - 1
+    gstart = _kernel_starts(gstart, A, dev,
+                            lambda: group_starts(kq2, kt2 // (top_k + 1)))
     emit = torch.empty(A, dtype=torch.bool, device=dev)
     rec = torch.empty((8, A), dtype=torch.int64, device=dev)
-    if G:
-        with torch.cuda.device(dev):
-            rc = lib.ndt_chain_emit(
-                kq2.data_ptr(), kt2.data_ptr(), qp2.data_ptr(),
-                tp2.data_ptr(), gstart.data_ptr(), emit.data_ptr(),
-                rec.data_ptr(), A, G, k, top_k, min_cnt, min_span,
-                # the plain version's 0.01 * k as PyTorch casts it
-                float(np.float32(0.01 * k)),
-                torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_launch("chain_emit", rc)
+    if A:
+        _chain_launch(lib, kq2, kt2, qp2, tp2, gstart, emit, rec, A, **kw)
         _build.LAUNCHES["chain_emit"] += 1
     return emit, rec
+
+
+def _chain_launch(lib, kq2, kt2, qp2, tp2, gstart, emit, rec, G, *, k: int,
+                  top_k: int, min_cnt: int, min_span: int):
+    """One launch of chain_emit_kernel on kq2's device over the groups
+    gstart[:G + 1] bounds."""
+    dev = kq2.device
+    with torch.cuda.device(dev):
+        rc = lib.ndt_chain_emit(
+            kq2.data_ptr(), kt2.data_ptr(), qp2.data_ptr(), tp2.data_ptr(),
+            gstart.data_ptr(), emit.data_ptr(), rec.data_ptr(), kq2.shape[0],
+            G, k, top_k, min_cnt, min_span,
+            # the plain version's 0.01 * k as PyTorch casts it
+            float(np.float32(0.01 * k)),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("chain_emit", rc)
 
 
 def _match_block(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base, q_pos_base,
@@ -548,11 +605,14 @@ def _vote_emit(qr, t_rid, t_pos, rel, qpos, *, k: int, diag_shift: int,
         return {kk: empty for kk in REC_FIELDS}, 0, 0
     key_q, key_t, key_b, diag, qpos, t_pos = _vote_inputs(
         qr, t_rid, t_pos, rel, qpos, diag_shift=diag_shift)
+    # one set of (key_q, key_t) group starts for both kernels
+    gstart = group_starts(key_q, key_t)
     key_t2, qp2_key = vote_corridor(key_q, key_t, key_b, diag, qpos,
-                                    diag_shift=diag_shift, top_k=top_k)
+                                    diag_shift=diag_shift, top_k=top_k,
+                                    gstart=gstart)
     emit, rec = chain_emit(*_chain_inputs(key_q, key_t2, qp2_key, t_pos),
                            k=k, top_k=top_k, min_cnt=min_cnt,
-                           min_span=min_span)
+                           min_span=min_span, gstart=gstart)
     hits = torch.nonzero(emit)[:, 0]
     n_emit = int(hits.shape[0])
     hc = hits[:cap_out]           # the first cap_out in order; rest dropped

@@ -3,9 +3,12 @@ split into the plain versions of its three CUDA kernels (engine_anchor_plain,
 vote_corridor_plain, chain_emit_plain), against the JAX package's jitted
 _vote_emit and _match_block on the CPU, on numpy anchor sets made from a seed
 and on a batch of the 30 kb world of tests/test_torch_engine.py; and numpy
-models of the kernels' own algorithms (csrc/engine.cu: a thread a minimizer,
-a warp a group walking runs of bins and corridor segments) against the plain
-versions.  Tolerance: exact, every record field, n_out and overflow."""
+models of the kernels' own algorithms (csrc/engine.cu: a thread a minimizer;
+a warp a group, its runs of bins counted once into a tile of
+te.VOTE_TILE runs with a loop for larger groups; a warp a group walking its
+corridor segments in one pass) against the plain versions, also at the
+tile's edge, and the group starts both kernels share.  Tolerance: exact,
+every record field, n_out and overflow."""
 import jax
 import numpy as np
 import pytest
@@ -191,10 +194,53 @@ def _group_starts(*keys):
     return np.append(np.nonzero(s)[0], len(keys[0]))
 
 
-def _vote_model(key_q, key_t, key_b, diag, qpos, diag_shift, top_k):
-    """vote_corridor_kernel: per group, top_k rounds of a packed argmax over
-    the runs of bins (a run's end by binary search), then each anchor's
-    corridor."""
+def _run_key(cnt, off):
+    return ((int(cnt) + 1) << 32) | (FULL - int(off))
+
+
+def _vote_runs(kb, tile):
+    """vote_runs: one pass over a group's key_b in 32s, run starts where
+    key_b >> 10 changes (the previous 32's last bin carried to lane 0), a
+    run's count its next start's offset less its own: in the same 32 by the
+    ballot, else when a later 32's first start (or the group's end) closes
+    the open run.  Returns the tile's (keys, bins relative to the first),
+    or None once the runs outgrow the tile."""
+    n = len(kb)
+    d = kb >> 10
+    keys, bins = {}, {}
+    R = open_idx = open_off = carry = 0
+    for base in range(0, n, 32):
+        i = base + np.arange(32)
+        inn = i < n
+        dl = np.where(inn, d[np.minimum(i, n - 1)], 0)
+        dp = np.concatenate([[carry], dl[:-1]])
+        lanes = np.nonzero(inn & ((i == 0) | (dl != dp)))[0]
+        if len(lanes):
+            if base and open_idx < tile:
+                keys[open_idx] = _run_key(base + lanes[0] - open_off,
+                                          open_off)
+            for r, lane in enumerate(lanes):
+                if R + r < tile:
+                    bins[R + r] = int(dl[lane] - d[0])
+                    if r + 1 < len(lanes):
+                        keys[R + r] = _run_key(lanes[r + 1] - lane,
+                                               base + lane)
+            open_idx, open_off = R + len(lanes) - 1, base + lanes[-1]
+            R += len(lanes)
+            if R > tile:
+                return None
+        carry = dl[31]
+    keys[open_idx] = _run_key(n - open_off, open_off)
+    return [keys[j] for j in range(R)], [bins[j] for j in range(R)]
+
+
+def _vote_model(key_q, key_t, key_b, diag, qpos, diag_shift, top_k,
+                tile=te.VOTE_TILE):
+    """vote_corridor_kernel: per group the runs counted once into a tile of
+    `tile` runs, top_k rounds of a packed argmax over it (a round's bin
+    blanks the runs within 2 of it in place); a group of more runs (or of
+    bins 2^31 apart) takes the loop over the group, each run's end by binary
+    search, every round.  Then each anchor's corridor."""
     width = 1 << diag_shift
     key_t2 = np.empty_like(key_t)
     qp2 = np.empty_like(qpos)
@@ -202,19 +248,33 @@ def _vote_model(key_q, key_t, key_b, diag, qpos, diag_shift, top_k):
     for s, e in zip(gs[:-1], gs[1:]):
         kb = key_b[s:e]
         d = kb >> 10
-        runs = [0] + list(np.nonzero(d[1:] != d[:-1])[0] + 1)
         bb, ok, prim = [], [], 0
-        for r in range(top_k):
-            best = 0
-            for i in runs:
-                cur = i + 1 + int(np.searchsorted(kb[i + 1:], (d[i] + 1) * 1024)) - i
-                if any(abs(int(d[i]) - b) <= 2 for b in bb):
-                    cur = -1
-                best = max(best, ((cur + 1) << 32) | (FULL - i))
-            bc, first = (best >> 32) - 1, FULL - (best & FULL)
-            bb.append(int(d[first]))
-            prim = bc if r == 0 else prim
-            ok.append(bc * 2 >= prim and bc > 0)
+        t = _vote_runs(kb, tile) if d[-1] - d[0] <= te.I32MAX else None
+        if t is not None:
+            keys, bins = t
+            for r in range(top_k):
+                if r:
+                    keys = [k_ & FULL if abs(b - bins_r) <= 2 else k_
+                            for k_, b in zip(keys, bins)]
+                j = int(np.argmax(keys))
+                assert keys.count(keys[j]) == 1   # offsets make keys unique
+                bc, bins_r = (keys[j] >> 32) - 1, bins[j]
+                bb.append(int(d[0]) + bins_r)
+                prim = bc if r == 0 else prim
+                ok.append(bc * 2 >= prim and bc > 0)
+        else:
+            runs = [0] + list(np.nonzero(d[1:] != d[:-1])[0] + 1)
+            for r in range(top_k):
+                best = 0
+                for i in runs:
+                    cur = int(np.searchsorted(kb[i + 1:], (d[i] + 1) * 1024)) + 1
+                    if any(abs(int(d[i]) - b) <= 2 for b in bb):
+                        cur = -1
+                    best = max(best, _run_key(cur, i))
+                bc, first = (best >> 32) - 1, FULL - (best & FULL)
+                bb.append(int(d[first]))
+                prim = bc if r == 0 else prim
+                ok.append(bc * 2 >= prim and bc > 0)
         for i in range(s, e):
             corr, bestd = top_k, 1 << 30
             for r in range(top_k):
@@ -237,51 +297,116 @@ def _link_q(dq, dt, k):
         torch.int64).numpy()
 
 
-def _chain_model(kq2, kt2, qp2, tp2, k, top_k, min_cnt, min_span):
-    """chain_emit_kernel: per (query, t_rid * 2 + rel) group, its corridor
-    segments in order, each found 32 anchors at a time (the in-segment
-    anchors of a 32 are a prefix), corridor 0's extent for the others."""
+def _chain_model(kq2, kt2, qp2, tp2, k, top_k, min_cnt, min_span,
+                 gstart=None):
+    """chain_emit_kernel: per group (gstart's, by default the (key_q,
+    t_rid * 2 + rel) runs) one pass in 32s; a lane's link to the anchor
+    before it (shuffled, or carried from the previous 32); every anchor
+    written zero; per corridor present in the 32 the warp reduces the link
+    sum, near count and int32 extents (identity values outside the
+    corridor, the plain version's +-2^30 for an anchor without one), and
+    lane c keeps corridor c's; at the group's end each corridor's record
+    goes to its last anchor, corridor 0's extent suppressing the others."""
     kc, inf = top_k + 1, 1 << 30
+    imax, imin = 2**31 - 1, -2**31
     A = len(kq2)
     emit = np.zeros(A, bool)
     rec = np.zeros((8, A), np.int64)
-    for s, e in zip(*(lambda g: (g[:-1], g[1:]))(
-            _group_starts(kq2, kt2 // kc))):
-        qs0 = qe0 = -inf
-        a = s
-        while a < e:
-            b = e
-            for base in range(a, e, 32):
-                i = np.arange(base, base + 32)
-                inn = (i < e) & (kt2[np.minimum(i, A - 1)] == kt2[a])
-                n_in = int(inn.sum())
-                assert inn[:n_in].all()           # a prefix of the 32
-                if n_in < 32:
-                    b = base + n_in
-                    break
-            q, t = qp2[a:b], tp2[a:b]
-            near = q != te.I32MAX
-            dq, dt = np.diff(q), np.diff(t)
-            link = near[1:] & near[:-1] & (dq > 0) & (dt > 0)
-            total = int(_link_q(dq[link], dt[link], k).sum())
-            cnt = int(near.sum())
-            qs = int(q[near].min()) if cnt else inf
-            qe = (int(q[near].max()) if cnt else -inf) + k
-            ts = int(t[near].min()) if cnt else inf
-            te_ = (int(t[near].max()) if cnt else -inf) + k
-            key_tq = int(kt2[a]) // kc
-            corr = int(kt2[a]) - key_tq * kc
-            if corr == 0 and cnt:
-                qs0, qe0 = qs, qe
+    gs = _group_starts(kq2, kt2 // kc) if gstart is None else gstart
+    for s, e in zip(gs[:-1], gs[1:]):
+        if s >= e:
+            break
+        key_tq = int(kt2[s]) // kc
+        acc = {}                  # corridor: [sum, cnt, qmin, qmax, tmin,
+        cq, ct, cc = te.I32MAX, 0, -1  # tmax, last, last near]
+        for base in range(s, e, 32):
+            i = base + np.arange(32)
+            inn = i < e
+            ii = np.minimum(i, e - 1)
+            q = np.where(inn, qp2[ii], te.I32MAX)
+            t = np.where(inn, tp2[ii], 0)
+            c = np.where(inn, kt2[ii] - key_tq * kc, -1)
+            pq, pt, pc = (np.concatenate([[x0], x[:-1]])
+                          for x0, x in ((cq, q), (ct, t), (cc, c)))
+            near = inn & (q != te.I32MAX)
+            link = (near & (i > s) & (pc == c) & (pq != te.I32MAX)
+                    & (q > pq) & (t > pt))
+            lq = np.zeros(32, np.int64)
+            if link.any():
+                lq[link] = _link_q(q[link] - pq[link], t[link] - pt[link], k)
+            for x in sorted(set(c[inn].tolist())):
+                mine = inn & (c == x)
+                hi = int(np.nonzero(mine)[0].max())
+                r = [int(lq[mine].sum()), int((mine & near).sum()),
+                     int(np.where(mine, np.where(near, q, inf), imax).min()),
+                     int(np.where(mine, np.where(near, q, -inf), imin).max()),
+                     int(np.where(mine, np.where(near, t, inf), imax).min()),
+                     int(np.where(mine, np.where(near, t, -inf), imin).max())]
+                a = acc.setdefault(x, [0, 0, imax, imin, imax, imin, -1, 0])
+                a[:6] = [a[0] + r[0], a[1] + r[1], min(a[2], r[2]),
+                         max(a[3], r[3]), min(a[4], r[4]), max(a[5], r[5])]
+                a[6], a[7] = base + hi, bool(near[hi])
+            cq, ct, cc = q[31], t[31], c[31]
+        a0 = acc.get(0, [0, 0, 0, 0])
+        qs0, qe0 = ((a0[2], a0[3] + k) if a0[1] > 0 else (-inf, -inf))
+        for x, (total, cnt, qmin, qmax, tmin, tmax, last, lnear) in acc.items():
+            qs, qe, ts, te_ = qmin, qmax + k, tmin, tmax + k
             oq = min(qe, qe0) - max(qs, qs0)
             span = min(qe - qs, te_ - ts)
-            if (near[-1] and (corr == 0 or oq * 2 < qe - qs)
-                    and cnt >= min_cnt and span >= min_span):
-                emit[b - 1] = True
-                rec[:, b - 1] = (kq2[a], key_tq & 1, qs, qe, key_tq >> 1,
-                                 ts, te_, min(total // 8 + k, span))
-            a = b
+            if (lnear and (x == 0 or oq * 2 < qe - qs) and cnt >= min_cnt
+                    and span >= min_span):
+                emit[last] = True
+                rec[:, last] = (kq2[s], key_tq & 1, qs, qe, key_tq >> 1,
+                                ts, te_, min(total // 8 + k, span))
     return emit, rec
+
+
+def _runs_group(rng, lens, q=0, t=1, spacing=(1, 2, 3, 5)):
+    """One forward (query q, target t) group whose diagonal bins are
+    len(lens) runs of lens[j] anchors each, bins spaced by a random choice
+    of `spacing` (so that the +-2 blanking takes some neighbours), each run
+    on a query window of its own (so that secondary corridors make
+    records); the diagonals are negative (targets ahead of the query)."""
+    lens = np.asarray(lens)
+    bins = np.cumsum(rng.choice(spacing, len(lens)))
+    n = int(lens.sum())
+    diag = (np.repeat(bins, lens) * 256 + rng.integers(0, 256, n)) - (1 << 20)
+    # run j's anchors at query positions [2000 j, 2000 j + 2000)
+    qpos = (np.repeat(np.arange(len(lens)), lens) * 2000
+            + rng.integers(0, 2000, n))
+    return (np.full(n, q), np.full(n, t), qpos - diag, np.zeros(n, np.int64),
+            qpos)
+
+
+def _cat(*sets):
+    return tuple(np.concatenate(c).astype(np.int64) for c in zip(*sets))
+
+
+def _tile_sets():
+    """Sets at the vote tile's edge (te.VOTE_TILE runs): groups of tile - 1,
+    tile and tile + 1 runs, one of 2 x tile, many one-anchor groups around
+    one group past the tile, and runs of more than 32 anchors that start and
+    end on a 32's edges."""
+    rng = np.random.default_rng(47)
+    T = te.VOTE_TILE
+    # runs of 1-3 anchors, a few of 6-11 that win the rounds
+    few = lambda n: np.where(rng.random(n) < 0.03, rng.integers(6, 12, n),
+                             rng.integers(1, 4, n))
+    edge = _cat(*(_runs_group(rng, few(n), t=t)
+                  for t, n in ((1, T - 1), (2, T), (3, T + 1))))
+    twice = _runs_group(rng, few(2 * T), t=4)
+    singles = _cat(*(_runs_group(rng, [1], t=t) for t in range(5, 400)
+                     if t != 200),
+                   _runs_group(rng, few(T + 7), t=200))
+    long_ = _cat(_runs_group(rng, [33, 31, 32, 64, 1, 70, 2, 32, 40], t=7,
+                             spacing=(3,)),
+                 _runs_group(rng, [5, 27, 64, 33], q=1, t=7, spacing=(4,)))
+    return {f"{T - 1}, {T}, {T + 1} runs": edge, f"{2 * T} runs": twice,
+            "one-anchor groups around one past the tile": singles,
+            "long runs on 32 edges": long_}
+
+
+TILE_SETS = _tile_sets()
 
 
 @pytest.mark.parametrize("top_k", [1, 4])
@@ -289,18 +414,99 @@ def _chain_model(kq2, kt2, qp2, tp2, k, top_k, min_cnt, min_span):
                                   "random"])
 def test_vote_and_chain_models_equal_plain(name, top_k):
     """The vote and chain kernels' algorithms, modelled, give the plain
-    versions' tensors on the inputs _vote_emit hands them."""
+    versions' tensors on the inputs _vote_emit hands them: the vote at the
+    kernel's tile and at a tile of 2 runs (groups of more runs take the
+    loop), the chain on the first sort's group starts."""
     vi = te._vote_inputs(*_torch(SETS[name]), diag_shift=8)
+    k2, q2 = te.vote_corridor_plain(*vi[:5], diag_shift=8, top_k=top_k)
+    for tile in (te.VOTE_TILE, 2):
+        mk2, mq2 = _vote_model(*(x.numpy() for x in vi[:5]), 8, top_k, tile)
+        assert np.array_equal(mk2, k2.numpy())
+        assert np.array_equal(mq2, q2.numpy())
+    ci = te._chain_inputs(vi[0], k2, q2, vi[5])
+    emit, rec = te.chain_emit_plain(*ci, k=15, top_k=top_k, min_cnt=4,
+                                    min_span=500)
+    memit, mrec = _chain_model(*(x.numpy() for x in ci), 15, top_k, 4, 500,
+                               te.group_starts(vi[0], vi[1]).numpy())
+    assert np.array_equal(memit, emit.numpy())
+    assert np.array_equal(mrec, rec.numpy())
+    assert name != "random" or emit.sum() > CAP_OUT
+
+
+@pytest.mark.parametrize("top_k", [1, 4, 8])
+@pytest.mark.parametrize("name", list(TILE_SETS))
+def test_tile_edge_models_equal_plain(name, top_k):
+    """At the vote tile's edge (te.VOTE_TILE runs a group, below, at and
+    past it), with runs longer than 32 anchors on a 32's edges: the vote
+    model (tile path and loop) and the chain model on the first sort's
+    group starts give the plain versions' tensors; every group past the
+    tile takes the loop."""
+    vi = te._vote_inputs(*_torch(TILE_SETS[name]), diag_shift=8)
+    kb = vi[2].numpy()
+    gs = _group_starts(vi[0].numpy(), vi[1].numpy())
+    runs = [len(np.unique(kb[s:e] >> 10)) for s, e in zip(gs[:-1], gs[1:])]
+    assert max(runs) >= te.VOTE_TILE - 1 or name.startswith("long runs")
+    past = [r > te.VOTE_TILE for r in runs]
+    assert [_vote_runs(kb[s:e], te.VOTE_TILE) is None
+            for s, e in zip(gs[:-1], gs[1:])] == past
     k2, q2 = te.vote_corridor_plain(*vi[:5], diag_shift=8, top_k=top_k)
     mk2, mq2 = _vote_model(*(x.numpy() for x in vi[:5]), 8, top_k)
     assert np.array_equal(mk2, k2.numpy()) and np.array_equal(mq2, q2.numpy())
     ci = te._chain_inputs(vi[0], k2, q2, vi[5])
     emit, rec = te.chain_emit_plain(*ci, k=15, top_k=top_k, min_cnt=4,
                                     min_span=500)
-    memit, mrec = _chain_model(*(x.numpy() for x in ci), 15, top_k, 4, 500)
+    memit, mrec = _chain_model(*(x.numpy() for x in ci), 15, top_k, 4, 500,
+                               te.group_starts(vi[0], vi[1]).numpy())
     assert np.array_equal(memit, emit.numpy())
     assert np.array_equal(mrec, rec.numpy())
-    assert name != "random" or emit.sum() > CAP_OUT
+
+
+@pytest.mark.parametrize("top_k", [1, 4, 8])
+@pytest.mark.parametrize("name", list(SETS) + list(TILE_SETS))
+def test_group_starts_shared(name, top_k):
+    """The premise of handing chain_emit vote_corridor's group starts: the
+    (key_q, key_t) groups of the first sort's order and the (key_q,
+    key_t2 // (top_k + 1)) groups of the second's are the same index
+    ranges (the second sort permutes anchors only inside a group).  And
+    group_starts gives them, then A to the end."""
+    vi = te._vote_inputs(*_torch((SETS | TILE_SETS)[name]), diag_shift=8)
+    k2, q2 = te.vote_corridor_plain(*vi[:5], diag_shift=8, top_k=top_k)
+    kq2, kt2, _, _ = te._chain_inputs(vi[0], k2, q2, vi[5])
+    A = vi[0].shape[0]
+    first = _group_starts(vi[0].numpy(), vi[1].numpy())
+    second = _group_starts(kq2.numpy(), kt2.numpy() // (top_k + 1))
+    assert np.array_equal(first, second)
+    for gs in (te.group_starts(vi[0], vi[1]),
+               te.group_starts(kq2, kt2 // (top_k + 1))):
+        want = np.full(A + 1, A)
+        want[: len(first) - 1] = first[:-1]
+        assert np.array_equal(gs.numpy(), want)
+    if name in ("random", "one-anchor groups"):
+        assert (vi[3] < 0).any() and (np.diff(first) == 1).any()
+
+
+@pytest.mark.parametrize("top_k", [1, 4, 8])
+def test_chain_model_equals_plain_on_sorted_keys(top_k):
+    """chain_emit on any keys in the second sort's order, not only the
+    vote's: corridors of every digit with anchors without a corridor
+    (I32MAX) among them, and targets that follow the queries closely across
+    corridor boundaries, so that a link there would score; the model on the
+    (key_q, key_t2 // (top_k + 1)) starts gives the plain version's
+    tensors."""
+    rng = np.random.default_rng(53 + top_k)
+    n, kc = 3000, top_k + 1
+    kq2 = rng.integers(0, 4, n)
+    kt2 = rng.integers(0, 30, n) * kc + rng.integers(0, kc, n)
+    qp2 = np.where(rng.random(n) < 0.1, te.I32MAX, rng.integers(0, 20000, n))
+    tp2 = np.abs(qp2 % te.I32MAX + 1000 + rng.integers(-40, 41, n))
+    order = np.lexsort((tp2, qp2, kt2, kq2))
+    ci = tuple(np.asarray(x[order], np.int64) for x in (kq2, kt2, qp2, tp2))
+    emit, rec = te.chain_emit_plain(*_torch(ci), k=15, top_k=top_k,
+                                    min_cnt=4, min_span=500)
+    memit, mrec = _chain_model(*ci, 15, top_k, 4, 500)
+    assert np.array_equal(memit, emit.numpy())
+    assert np.array_equal(mrec, rec.numpy())
+    assert emit.sum() > 20
 
 
 @pytest.mark.parametrize("case", ["max_occ 16", "max_occ 1", "gate off"])
