@@ -35,8 +35,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              card, exact equality of every output: engine_anchor on a
              synthetic index (hashes of more than max_occ entries, filter
              rows, self hits, the pair-once gate on and off, a read in three
-             rows, max_occ 1, no minimizer) and on one 16-row batch of the
-             main path's stage 01 (the index of its 3720 reads), then the
+             rows, max_occ 1, no minimizer), on indexes of hashes over
+             [0, 2^32) (bucket edges of its directory, empty buckets, a
+             bucket of 3000 entries, 20k filter rows, runs past max_occ and
+             one ending at H, at max_occ 16 and 40, negative hashes and
+             hashes of 2^32 and more; 100003 minimizers) and on one 16-row
+             batch of the main path's stage 01 (the index of its 3720
+             reads), each with its directory given and made by the wrapper;
+             then the
              two vote kernels on those anchors at top_k 1 and 4; the vote
              kernels also on one anchor, groups of one anchor, tied bins,
              groups whose bins are all blanked after round 1, random sets,
@@ -49,7 +55,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              CPU's (records, n_out, overflow; one set's cap_out must
              truncate); chain_emit also on keys in the second sort's order
              that the vote would not make (engine_chain_sets);
-             vote_corridor_kernel with no stack frame in `nvcc -Xptxas -v`
+             vote_corridor_kernel and engine_anchor_kernel with no stack
+             frame in `nvcc -Xptxas -v`
   overlaps   find_overlaps on fixed batches of reads gives identical
              records on the card (the engine kernels launched) and on the
              CPU: ONT reads at k = 17, w = 10; HiFi reads (one longer than
@@ -108,10 +115,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              pair equal to the same pair in launches of 64, and wave_fast_tb
              at the same sizes on tb/base from wave_fast_fwd; the engine
              kernels at the main path's batch, each alone (launches only)
-             and as a whole wrapper call, its group sizes, one whole
-             _match_block call with the kernels against the same call with
-             the plain versions on the card, the host syncs of one call
-             (counted) and a host sync's cost
+             and as a whole wrapper call, engine_anchor also warm and with
+             the L2 flushed before each launch (a 256 MB write), beside its
+             directory's build and the plain version's two
+             torch.searchsorted calls (a yardstick for the lookup); the
+             batch's group sizes; one _match_block call split by CUDA events
+             into its steps; one whole _match_block call with the kernels
+             against the same call with the plain versions on the card, the
+             host syncs of one call (counted) and a host sync's cost
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -127,6 +138,7 @@ use_mesh = 8 run.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -920,7 +932,7 @@ def engine_anchor_sets(rng):
     with hashes of more than max_occ entries, filter rows (0xFFFFFFFF, rid
     -1) at the end, self hits, the pair-once gate on half the reads, a
     minimizer of hash 0xFFFFFFFF and absent hashes; two rows of one read
-    (halo chunks); no minimizer at all."""
+    (halo chunks); no minimizer at all; then the full-range sets."""
     import numpy as np
     n_reads, H = 50, 4000
     h = np.sort(rng.integers(0, 600, H - 40)).astype(np.int64) * 7
@@ -944,7 +956,78 @@ def engine_anchor_sets(rng):
             ("synthetic index, max_occ 1", args, 1),
             ("synthetic index, no pair-once gate",
              args[:6] + (np.zeros(n_reads, np.int8),) + args[7:], 16),
-            ("no minimizer", empty, 16)]
+            ("no minimizer", empty, 16)] + engine_anchor_full_range_sets(rng)
+
+
+def engine_anchor_full_range_sets(rng, H=400_000, M=100_003):
+    """(tag, args of engine_anchor as numpy, max_occ): indexes of about H
+    hashes over [0, 2^32), queried by M minimizers (not a multiple of the
+    kernel's block): hashes at the directory's bucket edges (i << s - 1,
+    i << s, i << s + 1) queried at the edges +-2; entries in 50 buckets only
+    (the others empty); one bucket of 3000 entries; 20k filter rows with
+    entries just below 0xFFFFFFFF in the last bucket; runs of 20-40 entries
+    and the largest hash's run ending at H, at max_occ 16 and 40 (past the
+    kernel's mask of 32 occurrences); negative hashes and hashes of 2^32 and
+    more, in the index and queried."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap.engine import directory_bits
+    FULL, n_reads = 0xFFFFFFFF, 5000
+    uni = lambda n: rng.integers(0, 1 << 32, n)
+    pick = lambda a, n: rng.choice(np.asarray(a, np.int64), n)
+    s = 32 - directory_bits(H)
+
+    def args(hashes, qh):
+        h = np.sort(np.asarray(hashes, np.int64))
+        irid = np.where(h == FULL, -1, rng.integers(0, n_reads, len(h)))
+        ipos = rng.integers(0, 20000, len(h)) | (
+            rng.integers(0, 2, len(h)) << 30)
+        rows = 16
+        return (rng.integers(0, rows, len(qh)).astype(np.int64),
+                rng.integers(0, 16384, len(qh)).astype(np.int64),
+                np.asarray(qh, np.int64),
+                rng.integers(0, 2, len(qh)).astype(np.int64),
+                rng.integers(0, n_reads, rows).astype(np.int64),
+                rng.integers(0, 4, rows).astype(np.int64) * 15000,
+                (rng.random(n_reads) < 0.5).astype(np.int8), h,
+                irid.astype(np.int32), ipos.astype(np.int32))
+
+    ed = rng.choice(np.arange(1, 1 << (32 - s)), 5000, replace=False)
+    edge = ((ed[:, None] << s) + np.array([-1, 0, 1])).ravel()
+    edge = np.repeat(edge, rng.integers(1, 4, edge.size))
+    near = ((np.concatenate([ed, rng.integers(1, 1 << (32 - s), 2000)])
+             [:, None] << s) + np.arange(-2, 3)).ravel()
+    few = ((rng.choice(1 << (32 - s), 50, replace=False)[:, None] << s)
+           + rng.integers(0, 1 << s, (50, H // 50))).ravel()
+    big = (77 << s) + np.repeat(rng.choice(1 << s, 2000, replace=False),
+                                rng.integers(1, 3, 2000))[:3000]
+    top = FULL - rng.integers(1, 400, 3000)
+    runs = np.repeat(uni(H // 30), rng.integers(20, 41, H // 30))
+    last = np.full(25, runs.max() + 3)
+    odd = np.array([-(1 << 40), -7, -1, 1 << 32, (1 << 32) + 5, 1 << 45],
+                   np.int64)
+    odd_h = np.concatenate([np.repeat(odd, 3), uni(H - 20_000),
+                            np.full(2000, FULL)])
+    runs_args = args(np.concatenate([runs, last]), np.concatenate(
+        [pick(runs, 20_000), last[:1].repeat(2000), uni(M - 22_000)]))
+    return [
+        ("full range: bucket edges",
+         args(np.concatenate([edge, uni(H - len(edge))]), pick(near, M)), 16),
+        ("full range: 50 buckets of entries, the others empty",
+         args(few, np.concatenate([uni(M // 2), pick(few, M - M // 2)])), 16),
+        ("full range: a bucket of 3000 entries",
+         args(np.concatenate([big, uni(H - len(big))]), np.concatenate(
+             [pick(big, M // 3), pick(big, M // 3) + 1,
+              uni(M - 2 * (M // 3))])), 16),
+        ("full range: 20k filter rows, 3000 entries just below them",
+         args(np.concatenate([np.full(20_000, FULL), top, uni(H - 23_000)]),
+              np.concatenate([np.full(1000, FULL), pick(top, 40_000),
+                              FULL - rng.integers(0, 500, 20_000),
+                              uni(M - 61_000)])), 16),
+        ("full range: runs past max_occ, one ending at H", runs_args, 16),
+        ("full range: runs past 32 at max_occ 40", runs_args, 40),
+        ("full range: negative hashes and hashes of 2^32 and more",
+         args(odd_h, np.concatenate([pick(odd, M // 4), odd + 1, -odd[3:],
+                                     pick(odd_h, M - M // 4 - 9)])), 16)]
 
 
 def main_batch(dev):
@@ -1019,9 +1102,17 @@ def compare_engine_kernels(dev, tag, anchors=None, batch=None, max_occ=16,
     to = lambda a: a if torch.is_tensor(a) else torch.from_numpy(a).to(dev)
     if batch is not None:
         args = tuple(to(a) for a in batch)
-        ak, ap, t = _run(lambda: E.engine_anchor(*args, max_occ=max_occ),
+        # the directory made once, as find_overlaps makes it
+        bucket = E.anchor_directory(args[7])
+        ak, ap, t = _run(lambda: E.engine_anchor(*args, max_occ=max_occ,
+                                                 bucket=bucket),
                          lambda: E.engine_anchor_plain(*args, max_occ=max_occ),
                          reps)
+        # called alone, the wrapper makes its own directory: the same anchors
+        if not all(_tensors_equal(x, y)[0] for x, y in zip(
+                E.engine_anchor(*args, max_occ=max_occ), ak)):
+            raise RuntimeError("engine_anchor on its own directory differs "
+                               f"from engine_anchor on a given one on '{tag}'")
         lo = torch.searchsorted(args[7], args[2])
         occ = int(torch.clamp(torch.searchsorted(args[7], args[2], right=True)
                               - lo, max=max_occ).sum())
@@ -1156,8 +1247,10 @@ class plain_engine:
         self.saved = {n: getattr(E, n) for n in ENGINE_KERNELS}
         for n in ENGINE_KERNELS:
             plain = getattr(E, n + "_plain")
-            # _vote_emit hands the kernels' wrappers its group starts
-            setattr(E, n, lambda *a, _f=plain, gstart=None, **k: _f(*a, **k))
+            # _vote_emit hands the kernels' wrappers its group starts,
+            # _match_block engine_anchor's directory
+            setattr(E, n, lambda *a, _f=plain, gstart=None, bucket=None,
+                    **k: _f(*a, **k))
 
     def __exit__(self, *exc):
         from nextdenovo_tpu_torch.overlap import engine as E
@@ -1198,9 +1291,11 @@ def engine_ptxas():
     log("[engine] -Xptxas -v: " + "; ".join(
         f"{k}: {v[0]} registers, {v[1]} B stack frame, {v[2]} B spills"
         for k, v in out.items()))
-    if out.get("vote_corridor_kernel", [0, 1])[1] != 0:
-        raise RuntimeError("vote_corridor_kernel keeps a stack frame (its "
-                           "rounds' bins belong in registers)")
+    for k, why in (("vote_corridor_kernel", "its rounds' bins"),
+                   ("engine_anchor_kernel", "a chunk's rids and positions")):
+        if out.get(k, [0, 1])[1] != 0:
+            raise RuntimeError(f"{k} keeps a stack frame ({why} belong in "
+                               "registers)")
     return out
 
 
@@ -1283,41 +1378,81 @@ def _events_ms(fn, reps=5):
     return s.elapsed_time(e) / reps
 
 
+L2_FLUSH_BYTES = 256 << 20   # written between launches timed cold (L2: 50 MB)
+
+
+def _each_ms(fn, flush=None, reps=5):
+    """ms a call of fn (launches only) by CUDA events around each call, after
+    a warm one; with flush (a tensor of more than the L2), flush.zero_()
+    before each call, outside its events, so that the call finds its inputs
+    in device memory and not in L2.  The device first sleeps ~2 ms, so that
+    every call is queued before it runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(4_000_000)
+    for s, e in ev:
+        if flush is not None:
+            flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / reps
+
+
 def engine_alone(dev, mb, top_k, reps=5):
     """The three engine kernels' launches alone at the main path's batch
-    (CUDA events around the launches only; the wrapper's inputs, group
-    starts and buffers made before): engine_anchor's count and write
-    launches, vote_corridor's and chain_emit's one launch each, on the
-    group starts _vote_emit makes.  Returns {name: ms}."""
+    (CUDA events around the launches only; the wrapper's inputs, directory,
+    group starts and buffers made before): one launch of each, vote_corridor
+    and chain_emit on the group starts _vote_emit makes.  engine_anchor also
+    with events around each launch, warm and with the L2 flushed before
+    each; its directory's build, and the plain version's two
+    torch.searchsorted calls on the batch (a yardstick for the lookup
+    alone), both warm and flushed.
+    Returns ({name: ms}, the vote's inputs)."""
     import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.overlap import engine as E
     s1 = STAGE01
     lib = _build.kernels()
     args = mb["args"]
-    M, H = args[0].shape[0], args[7].shape[0]
-    i64 = torch.int64
-    ins = [t.data_ptr() for t in args]
-    lo_cnt = torch.empty((2, M), dtype=i64, device=dev)
-    ntake = torch.empty(M, dtype=i64, device=dev)
+    M, H, idx_h, qh = args[0].shape[0], args[7].shape[0], args[7], args[2]
+    bucket = E.anchor_directory(idx_h)
+    ins = [t.data_ptr() for t in args + (bucket,)]
+    shift = 32 - E.directory_bits(H)
+    stat, nb = E._anchor_stat(M, dev)
     mo = s1["max_occ"]
-    count = lambda: E._anchor_launch(lib, ins, lo_cnt, ntake, None, M, H, 0,
-                                     mo, 0)
-    count()
-    ends = torch.cumsum(ntake, 0)
-    A = int(ends[-1])
-    out = torch.empty((5, A), dtype=i64, device=dev)
-    ms = {"engine_anchor": _events_ms(count, reps) + _events_ms(
-        lambda: E._anchor_launch(lib, ins, lo_cnt, ends, out.data_ptr(), M,
-                                 H, A, mo, 1), reps)}
-    vi = E._vote_inputs(*out, diag_shift=8)
+    cap = M * mo                          # as the wrapper: the bound of A
+    out = torch.empty((5, cap), dtype=torch.int64, device=dev)
+    launch = functools.partial(
+        E._anchor_launch, lib, ins, stat, out.data_ptr(), M, H, cap, shift,
+        mo, torch.cuda.current_stream(dev).cuda_stream)
+    launch()
+    A = int(stat[nb])
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    direc = lambda: E.anchor_directory(idx_h)
+    search = lambda: (torch.searchsorted(idx_h, qh),
+                      torch.searchsorted(idx_h, qh, right=True))
+    ms = {"engine_anchor": _events_ms(launch, reps),
+          "engine_anchor, each warm": _each_ms(launch, None, reps),
+          "engine_anchor, each L2 flushed": _each_ms(launch, flush, reps),
+          "directory": _each_ms(direc, None, reps),
+          "directory, L2 flushed": _each_ms(direc, flush, reps),
+          "searchsorted x2 (yardstick)": _each_ms(search, None, reps),
+          "searchsorted x2 (yardstick), L2 flushed":
+              _each_ms(search, flush, reps)}
+    del flush
+    vi = E._vote_inputs(*out[:, :A], diag_shift=8)
     gstart = E.group_starts(vi[0], vi[1])
     key_t2, qp2 = torch.empty_like(vi[1]), torch.empty_like(vi[4])
     ms["vote_corridor"] = _events_ms(lambda: E._vote_launch(
         lib, *vi[1:5], gstart, key_t2, qp2, A, 8, top_k), reps)
     ci = E._chain_inputs(vi[0], key_t2, qp2, vi[5])
     emit = torch.empty(A, dtype=torch.bool, device=dev)
-    rec = torch.empty((8, A), dtype=i64, device=dev)
+    rec = torch.empty((8, A), dtype=torch.int64, device=dev)
     ms["chain_emit"] = _events_ms(lambda: E._chain_launch(
         lib, *ci, gstart, emit, rec, A, k=s1["k"], top_k=top_k,
         min_cnt=s1["min_cnt"], min_span=s1["min_span"]), reps)
@@ -1326,9 +1461,70 @@ def engine_alone(dev, mb, top_k, reps=5):
     _, ms["group_starts call"] = timed(lambda: E.group_starts(vi[0], vi[1]),
                                        reps)
     log("[timing] engine kernels alone (launches only, CUDA events, "
-        f"{reps} after a warm one; A={A}, top_k={top_k}): " + ", ".join(
+        f"{reps} after a warm one; M={M}, H={H}, directory of "
+        f"{bucket.shape[0]} starts, A={A}, top_k={top_k}): " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in ms.items()))
     return ms, vi
+
+
+def match_block_split(dev, mb, reps=5):
+    """One _match_block call at the main path's batch cut into its steps by
+    CUDA events (host-paced: the call syncs twice), as find_overlaps makes
+    it: engine_anchor on find_overlaps' directory, _vote_inputs (three
+    stable sort passes and the gathers), group_starts, vote_corridor,
+    _chain_inputs (four passes and the gathers), chain_emit, and the hits'
+    nonzero with the records' copy to the host.  The steps are _vote_emit's
+    own, in its order; the records must equal _match_block's.  Returns
+    {step: mean ms over reps calls after a warm one}."""
+    import torch
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    a, cap_out, top_k = mb["args"], 256 * 16 + 256, s1["top_k"]
+    bucket = E.anchor_directory(mb["idx"].h)
+    ckw = dict(k=s1["k"], top_k=top_k, min_cnt=s1["min_cnt"],
+               min_span=s1["min_span"])
+    steps = ("engine_anchor", "_vote_inputs", "group_starts",
+             "vote_corridor", "_chain_inputs", "chain_emit",
+             "hits and records' copy")
+
+    def once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+        ev[0].record()
+        an = E.engine_anchor(*a, max_occ=s1["max_occ"], bucket=bucket)
+        ev[1].record()
+        vi = E._vote_inputs(*an, diag_shift=8)
+        ev[2].record()
+        gs = E.group_starts(vi[0], vi[1])
+        ev[3].record()
+        k2, q2 = E.vote_corridor(*vi[:5], diag_shift=8, top_k=top_k,
+                                 gstart=gs)
+        ev[4].record()
+        ci = E._chain_inputs(vi[0], k2, q2, vi[5])
+        ev[5].record()
+        emit, rec = E.chain_emit(*ci, **ckw, gstart=gs)
+        ev[6].record()
+        hits = torch.nonzero(emit)[:, 0]
+        recs = rec[:, hits[:cap_out]].to(torch.int32).cpu()
+        ev[7].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(7)], recs
+
+    once()
+    runs = [once() for _ in range(reps)]
+    want, n, _ = E._match_block(
+        *a[:7], mb["idx"], k=s1["k"], max_occ=s1["max_occ"], diag_shift=8,
+        min_cnt=s1["min_cnt"], min_span=s1["min_span"], cap_out=cap_out,
+        top_k=top_k, bucket=bucket)
+    want = torch.stack([want[f] for f in E.REC_FIELDS]).to(torch.int32).cpu()
+    if not torch.equal(runs[-1][1], want):
+        raise RuntimeError("the split _match_block's records differ from "
+                           "_match_block's")
+    ms = {st: sum(r[0][i] for r in runs) / reps for i, st in enumerate(steps)}
+    log(f"[timing] _match_block split (CUDA events, host-paced, mean of "
+        f"{reps}; {n} records): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in ms.items())
+        + f"; sum {sum(ms.values()):.4f} ms")
+    return ms
 
 
 def engine_timing(dev, mb):
@@ -1350,12 +1546,21 @@ def engine_timing(dev, mb):
         log(f"[timing] {name}: kernel alone {v['ms']:.4f} ms, whole call "
             f"{v['wrapper_ms']:.4f} ms (plain {v['plain_ms']:.3f} ms), bound "
             f"{v['bound_ms']:.4f} ms by {v['bound_by']}, {v['shape']}")
+    r["engine_anchor"].update(
+        ms_l2_flushed=alone["engine_anchor, each L2 flushed"],
+        ms_each_warm=alone["engine_anchor, each warm"],
+        directory_ms=alone["directory"],
+        searchsorted_ms=alone["searchsorted x2 (yardstick)"],
+        searchsorted_ms_l2_flushed=alone[
+            "searchsorted x2 (yardstick), L2 flushed"])
     engine_groups(vi)
+    match_block_split(dev, mb)
     a = mb["args"]
+    bucket = E.anchor_directory(mb["idx"].h)
     call = lambda: E._match_block(
         *a[:7], mb["idx"], k=s1["k"], max_occ=s1["max_occ"], diag_shift=8,
         min_cnt=s1["min_cnt"], min_span=s1["min_span"], cap_out=256 * 16 + 256,
-        top_k=s1["top_k"])
+        top_k=s1["top_k"], bucket=bucket)
 
     def wall(n=5):
         call()
@@ -2797,8 +3002,10 @@ def main() -> int:
             launches_hifi=hifi_launches[name],
             launches_multihost=[h[name] for h in mh_launches],
             launches_mesh=mesh_launches[name],
-            **{k: t[k] for k in ("host_native_ms", "wrapper_ms")
-               if k in t}))
+            **{k: t[k] for k in ("host_native_ms", "wrapper_ms",
+                                 "ms_l2_flushed", "ms_each_warm",
+                                 "directory_ms", "searchsorted_ms",
+                                 "searchsorted_ms_l2_flushed") if k in t}))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

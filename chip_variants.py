@@ -7,6 +7,8 @@
     python3 chip_variants.py --kernel wave_fast_fwd A.cu [B.cu ...]
     python3 chip_variants.py --kernel vote_corridor A.cu [B.cu ...]
     python3 chip_variants.py --kernel chain_emit A.cu [B.cu ...]
+    python3 chip_variants.py --kernel engine_anchor A.cu [B.cu ...]
+    python3 chip_variants.py --turns PARENT_DIR
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -72,6 +74,25 @@ the tile-edge groups (CUDA events around 5 launches after a warm one, the
 device asleep ~1 ms first so that the host's launch time is not measured);
 the package's kernel also as its wrapper launches it, with G = A.
 
+--kernel engine_anchor: each A.cu is a whole copy of csrc/engine.cu with the
+package's ndt_engine_anchor signature.  Every copy is built into a library of
+its own and held, with the package's kernel, against engine_anchor_plain on
+one 16-row batch of the main path's stage 01 and on chip_smoke's synthetic and
+full-range index sets (chip_smoke.engine_anchor_sets), exactly.  Then the
+package's kernel and every copy are timed in turns, in the order given and in
+reverse, on the main path's batch: 5 launches after a warm one between two
+events (the device asleep first), and each launch between its own events,
+warm and with the L2 flushed before it (a 256 MB write).
+
+--turns PARENT_DIR: this checkout against an earlier tree unpacked in
+PARENT_DIR (git archive), in turns parent, this, this, parent.  First
+--engine-anchor-turn of each (a process each): engine_anchor at the main
+path's batch through the package's public wrapper, its kernels' device time by
+name from torch.profiler and the whole call by the host clock, warm and with
+the L2 flushed before each call.  Then each tree's own chip_smoke main and
+HiFi paths in a workdir of their own; every stage file of the first parent
+and the first of this checkout's runs must be byte-equal.
+
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
 selects between the loads, and two chains of dependent integer
@@ -80,10 +101,13 @@ instructions; it prints cycles an iteration.
 from __future__ import annotations
 
 import ctypes
+import functools
+import json
 import os
 import subprocess
 import sys
 import tempfile
+import time
 
 LATENCY_CU = r"""
 #include <cuda_runtime.h>
@@ -474,6 +498,190 @@ def main_engine(srcs, kernel) -> int:
     return 0
 
 
+def main_engine_anchor(srcs) -> int:
+    """--kernel engine_anchor: copies of csrc/engine.cu with the package's
+    engine_anchor signature, each launched through the engine's own launch
+    helper with its library."""
+    import numpy as np
+    import torch
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.overlap import engine as E
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    c.phase_env()
+    _build.build(native=False)
+    libs = {"package": _build.kernels()}
+    libs.update(build_copies(_build.find_nvcc(), _build.NVCC_FLAGS,
+                             tempfile.mkdtemp(prefix="chip_variants_"), srcs,
+                             "ndt_engine_anchor",
+                             [vp] * 13 + [ci, ll, ll, ci, ci, vp]))
+    d = torch.device("cuda")
+    mo = c.STAGE01["max_occ"]
+    mb = c.main_batch(d)
+    rng = np.random.default_rng(19)
+    sets = [("main-path batch", mb["args"], mo)] + [
+        (tag, tuple(torch.from_numpy(x).to(d) for x in a), m)
+        for tag, a, m in c.engine_anchor_sets(rng)]
+    stream = torch.cuda.current_stream(d).cuda_stream
+
+    def launches(lib, args, m):
+        """(launch, out, directory): lib's launch function on args, the
+        output it writes and the directory it reads (hold it)."""
+        M, H = args[0].shape[0], args[7].shape[0]
+        bucket = E.anchor_directory(args[7])
+        ins = [t.data_ptr() for t in args + (bucket,)]
+        stat, nb = E._anchor_stat(M, d)
+        cap = M * m                       # as the wrapper: the bound of A
+        out = torch.empty((5, cap), dtype=torch.int64, device=d)
+        launch = functools.partial(
+            E._anchor_launch, lib, ins, stat, out.data_ptr(), M, H, cap,
+            32 - E.directory_bits(H), m, stream)
+        launch()
+        A = int(stat[nb]) if M else 0
+        return launch, out[:, :A], bucket
+
+    for tag, args, m in sets:
+        want = E.engine_anchor_plain(*args, max_occ=m)
+        for name, lib in libs.items():
+            _, out, _ = launches(lib, args, m)
+            if not all(torch.equal(x, y) for x, y in zip(out, want)):
+                raise RuntimeError(f"{name} differs from engine_anchor_plain "
+                                   f"on '{tag}'")
+        log(f"[variants] {tag}: every copy equal to engine_anchor_plain "
+            f"(M={args[0].shape[0]}, H={args[7].shape[0]}, "
+            f"A={want[0].shape[0]})")
+    flush = torch.empty(c.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=d)
+    prepared = {name: launches(lib, mb["args"], mo)
+                for name, lib in libs.items()}
+    times = {}
+    for names in (list(libs), list(libs)[::-1]):
+        for name in names:
+            launch = prepared[name][0]
+            for how, t in (
+                    ("alone", lambda: c._events_ms(launch, 5)),
+                    ("each warm", lambda: c._each_ms(launch, None)),
+                    ("each L2 flushed", lambda: c._each_ms(launch, flush))):
+                times.setdefault((name, how), []).append(t())
+    for (name, how), t in times.items():
+        log(f"[variants] engine_anchor {name}, main-path batch, {how}: "
+            + " / ".join(f"{x:.4f}" for x in t) + " ms")
+    return 0
+
+
+def engine_anchor_turn(tree) -> int:
+    """--engine-anchor-turn DIR: engine_anchor of the package in the
+    checkout DIR at the main path's batch, called as find_overlaps calls it
+    (with the directory made before, where the package has one): the whole
+    call by the host clock, and the device time of the kernels whose name
+    holds engine_anchor and of the call's other device work by
+    torch.profiler, each warm and with the L2 flushed before each call (5
+    calls after a warm one).  Prints one JSON line.  Only the package's
+    public wrapper is used, so that two checkouts compare."""
+    import chip_smoke as c
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.overlap import engine as E
+    if not E.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {E.__file__}, not the package in {tree}")
+    c.phase_env()
+    _build.build(native=False)
+    d = torch.device("cuda")
+    mb = c.main_batch(d)
+    args, reps = mb["args"], 5
+    kw = dict(max_occ=c.STAGE01["max_occ"])
+    if hasattr(E, "anchor_directory"):
+        kw["bucket"] = E.anchor_directory(args[7])
+    call = lambda: E.engine_anchor(*args, **kw)
+    flush = torch.empty(c.L2_FLUSH_BYTES // 4, dtype=torch.int32, device=d)
+    res = {"tree": tree, "A": int(call()[0].shape[0])}
+    for how, fl in (("warm", None), ("L2 flushed", flush)):
+        call()
+        wall = 0.0
+        for _ in range(reps):
+            if fl is not None:
+                fl.zero_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if fl is not None:
+                    fl.zero_()
+                call()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and (fl is None or "Fill" not in e.key)):
+                by_name[e.key[:60]] = (e.device_time_total / 1e3 / reps,
+                                       e.count / reps)
+        kern = [v for k, v in by_name.items() if "engine_anchor" in k]
+        res[how] = dict(
+            whole_call_ms=wall * 1e3 / reps,
+            kernels_ms=sum(v[0] for v in kern),
+            launches=sum(v[1] for v in kern),
+            other_device_ms=sum(v[0] for k, v in by_name.items()
+                                if "engine_anchor" not in k),
+            device_ms_by_name={k: v[0] for k, v in by_name.items()})
+    log(json.dumps({"engine_anchor_turn": res}))
+    return 0
+
+
+def main_turns(parent) -> int:
+    """--turns PARENT: this checkout against the one in PARENT (an earlier
+    tree, unpacked with git archive), in turns parent, this, this, parent:
+    engine_anchor_turn of each, then each checkout's own chip_smoke
+    main and HiFi paths (stage walls, engine/match) in a workdir of its own.
+    Every stage file of the first parent and the first of this checkout's
+    runs (the files under a stage's directory, the .done markers aside,
+    which hold times) must be byte-equal."""
+    import filecmp
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    order = [parent, here, here, parent]
+    for tree in order:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--engine-anchor-turn", tree], cwd=here)
+        if r.returncode:
+            return r.returncode
+    runs = tempfile.mkdtemp(prefix="chip_variants_turns_")
+    code = ("import chip_smoke as c, torch, sys; d = torch.device('cuda'); "
+            "c.phase_env(); c.phase_build(); w = sys.argv[1]; "
+            "c.phase_main_path(d, c.GENOME_SIZE, w + '/main'); "
+            "c.phase_hifi_path(d, c.HIFI_GENOME_SIZE, w + '/hifi')")
+    wds = []
+    for i, tree in enumerate(order):
+        wd = os.path.join(runs, f"turn{i}")
+        for sub in ("main", "hifi"):
+            os.makedirs(os.path.join(wd, sub))
+        log(f"[turns] turn {i}: {'parent' if tree == parent else 'this'}")
+        r = subprocess.run([sys.executable, "-c", code, wd], cwd=tree)
+        if r.returncode:
+            return r.returncode
+        wds.append(wd)
+    n_files = 0
+    for dp, _, fs in os.walk(wds[0]):
+        for f in fs:
+            rel = os.path.relpath(os.path.join(dp, f), wds[0])
+            parts = rel.split(os.sep)     # path/wd/<stage>/.../file
+            if (f == ".done" or len(parts) < 4 or parts[1] != "wd"
+                    or not parts[2][:2].isdigit()):
+                continue
+            if not filecmp.cmp(os.path.join(wds[0], rel),
+                               os.path.join(wds[1], rel), shallow=False):
+                raise RuntimeError(f"{rel} differs between the parent and "
+                                   "this checkout")
+            n_files += 1
+    log(f"[turns] {n_files} stage files of the main and HiFi paths "
+        "byte-equal, parent against this checkout")
+    return 0
+
+
 def main(argv) -> int:
     import numpy as np
     import torch
@@ -488,6 +696,12 @@ def main(argv) -> int:
     if argv[:1] == ["--kernel"] and argv[1:2] in (["vote_corridor"],
                                                   ["chain_emit"]):
         return main_engine(argv[2:], argv[1])
+    if argv[:2] == ["--kernel", "engine_anchor"]:
+        return main_engine_anchor(argv[2:])
+    if argv[:1] == ["--engine-anchor-turn"]:
+        return engine_anchor_turn(argv[1])
+    if argv[:1] == ["--turns"]:
+        return main_turns(argv[1])
     do_lat = "--latency" in argv
     srcs = [a for a in argv if a != "--latency"]
     import chip_smoke as c

@@ -9,16 +9,33 @@
 // two lexicographic sorts between them stay torch.sort passes, as they are
 // lax.sort ops outside any kernel in the JAX package.
 //
-//   engine_anchor   one thread a query minimizer.  Binary search of its
-//                   hash in the sorted index (int64, the 0xFFFFFFFF filter
-//                   rows at the end), the first max_occ occurrences, the
-//                   row's rid and position bases, the strand bit, and the
-//                   three gates (no self hit, t_rid >= 0, the pair-once
-//                   qmask gate).  Run twice: a count pass (write = 0) that
-//                   keeps lo, cnt and the number taken, then, after an
-//                   inclusive cumsum of the counts, a write pass (write = 1)
-//                   that writes the taken anchors compacted, in flat
-//                   (minimizer, occurrence) order: torch.nonzero's order.
+//   engine_anchor   one thread a query minimizer, one launch.  Its hash's
+//                   first index entry (int64, the 0xFFFFFFFF filter rows at
+//                   the end) comes from a bucket directory: bucket[i] is the
+//                   first entry of hash >= i << (32 - b), so a hash in
+//                   [0, 2^32) needs a lower bound within [bucket[i],
+//                   bucket[i + 1]) only, a few probes in one or two lines (b
+//                   is chosen so that a bucket holds at most ~8 entries on
+//                   average; a hash outside [0, 2^32) searches the whole
+//                   index).  Its count is the run of equal entries from
+//                   there, at most max_occ: 16 entries' hashes and rids
+//                   loaded at once, then their qmask entries at once, for
+//                   the three gates (no self hit, t_rid >= 0, the pair-once
+//                   qmask gate), whose verdicts it keeps as a bit mask.  The
+//                   block scans its taken counts and publishes its total;
+//                   its first anchor is the sum of the totals of the blocks
+//                   before it, each waited for (blocks are numbered by a
+//                   ticket in the order they start, so a block waits only on
+//                   blocks already running), and the last block's end is A.
+//                   The taken anchors go out compacted, with the row's rid
+//                   and position bases and the strand bit, in flat
+//                   (minimizer, occurrence) order: torch.nonzero's order,
+//                   into rows of M * max_occ, the bound of A.  No cumsum,
+//                   no second launch; the host reads A once.  (Measured on
+//                   the H100 against a count launch and a write launch with
+//                   the blocks' totals between them, 1-8 % faster; a whole
+//                   small bucket loaded at once instead of searched, no
+//                   faster.)
 //   vote_corridor   one warp a (key_q, key_t) group of the first sort's
 //                   order, warps walking groups g, g + warps, ... of the
 //                   starts _vote_emit makes once on the device (the grid is
@@ -72,9 +89,10 @@
 // anchor without a corridor.
 //
 // Bound on this card: bytes.  engine_anchor reads the minimizers, the index
-// entries its occurrences touch (plus ~log2 H probes a minimizer, mostly in
-// L2) and writes 40 B an anchor; vote_corridor reads 32 B and writes 16 B an
-// anchor; chain_emit reads 32 B and writes 65 B an anchor.  At the main
+// entries its occurrences touch (the bound counts ~2 log2 H probes a
+// minimizer; the directory leaves one load of it and a few probes in one
+// line) and writes 40 B an anchor; vote_corridor reads 32 B and writes 16 B
+// an anchor; chain_emit reads 32 B and writes 65 B an anchor.  At the main
 // path's batch (~4 x 10^4 anchors, groups of 1 to ~200 anchors and 1 to 3
 // runs) each is well under a MB, so a launch is latency, not bandwidth: the
 // designs keep each group's chain of dependent loads short (one pass over
@@ -111,15 +129,6 @@ __device__ __forceinline__ int64_t lower_bound(const int64_t* a, int64_t lo,
     return lo;
 }
 
-__device__ __forceinline__ int64_t upper_bound(const int64_t* a, int64_t lo,
-                                               int64_t hi, int64_t x) {
-    while (lo < hi) {                     // first i in [lo, hi): a[i] > x
-        const int64_t mid = lo + ((hi - lo) >> 1);
-        if (a[mid] <= x) lo = mid + 1; else hi = mid;
-    }
-    return lo;
-}
-
 __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
     const int64_t q = a / b;
     return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
@@ -148,52 +157,169 @@ __device__ __forceinline__ unsigned long long warp_max_u(unsigned long long v) {
 // ---------------------------------------------------------------------------
 // engine_anchor
 
-__global__ void engine_anchor_kernel(
+constexpr int ANCHOR_THREADS = 256;      // minimizers a block
+constexpr int ANCHOR_WARPS = ANCHOR_THREADS / 32;
+constexpr int ANCHOR_CHUNK = 16;         // occurrences whose loads go together
+
+// The sum of v over the block, for every thread (one call a kernel: part
+// is written once).
+__device__ __forceinline__ int64_t block_sum(int64_t v, int64_t* part) {
+    v = warp_sum(v);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+    __syncthreads();
+    int64_t t = 0;
+#pragma unroll
+    for (int j = 0; j < ANCHOR_WARPS; ++j) t += part[j];
+    return t;
+}
+
+// no self hit, no filter row, and the pair-once gate
+__device__ __forceinline__ bool anchor_taken(int64_t tr, int64_t qg,
+                                             const int8_t* qmask) {
+    return tr != qg && tr >= 0 && !(tr < qg && qmask[tr] > 0);
+}
+
+// Occurrences o0 .. o0 + ANCHOR_CHUNK - 1 of hash h from entry lo (none at
+// max_occ or past hi): their hashes and rids loaded together, then the
+// gates' qmask entries together.  Returns how many equal h (the run goes on
+// past the chunk only when all do); taken gets bit j for each taken one.
+__device__ __forceinline__ int anchor_chunk(
+    const int64_t* __restrict__ idx_h, const int32_t* __restrict__ idx_rid,
+    const int8_t* __restrict__ qmask, int64_t lo, int64_t hi, int64_t h,
+    int64_t qg, int o0, int max_occ, int32_t (&rid)[ANCHOR_CHUNK],
+    unsigned& taken) {
+    bool eq[ANCHOR_CHUNK];
+#pragma unroll
+    for (int j = 0; j < ANCHOR_CHUNK; ++j) {
+        const int64_t a = lo + o0 + j;
+        const bool ok = o0 + j < max_occ && a < hi;
+        eq[j] = ok && idx_h[a] == h;
+        rid[j] = ok ? idx_rid[a] : -1;
+    }
+    int n = 0;
+    bool run = true;
+#pragma unroll
+    for (int j = 0; j < ANCHOR_CHUNK; ++j) {
+        run = run && eq[j];
+        n += run;
+    }
+    taken = 0;
+#pragma unroll
+    for (int j = 0; j < ANCHOR_CHUNK; ++j)
+        taken |= (unsigned)(j < n && anchor_taken(rid[j], qg, qmask)) << j;
+    return n;
+}
+
+// stat (blocks + 2) int64, zeroed before the launch: each block's taken
+// total + 1 once it is known, A, then the ticket that numbers the blocks in
+// the order they start (a block waits only on blocks already running).  out
+// (5, stride): qr, t_rid, t_pos, rel, qpos in the first A columns.
+__global__ void __launch_bounds__(ANCHOR_THREADS) engine_anchor_kernel(
     const int64_t* __restrict__ qm_rid, const int64_t* __restrict__ qm_pos,
     const int64_t* __restrict__ qm_hash, const int64_t* __restrict__ qm_strand,
     const int64_t* __restrict__ q_rid_base,
     const int64_t* __restrict__ q_pos_base, const int8_t* __restrict__ qmask,
     const int64_t* __restrict__ idx_h, const int32_t* __restrict__ idx_rid,
-    const int32_t* __restrict__ idx_pos,
-    int64_t* __restrict__ lo_cnt,        // (2, M): lo, cnt
-    int64_t* __restrict__ ntake,         // (M,): taken; cumsum'd between
-    int64_t* __restrict__ out,           // (5, A): qr, t_rid, t_pos, rel, qpos
-    int M, int64_t H, int64_t A, int max_occ, int write) {
-    const int m = blockIdx.x * blockDim.x + threadIdx.x;
-    if (m >= M) return;
-    const int64_t row = qm_rid[m];
-    const int64_t qg = q_rid_base[row];
-    int64_t lo, cnt;
-    if (!write) {
+    const int32_t* __restrict__ idx_pos, const int32_t* __restrict__ bucket,
+    int64_t* stat, int64_t* __restrict__ out, int M, int64_t H,
+    int64_t stride, int shift, int max_occ) {
+    __shared__ int64_t part[ANCHOR_WARPS], part2[ANCHOR_WARPS];
+    __shared__ int bid_s;
+    if (threadIdx.x == 0)
+        bid_s = (int)atomicAdd(reinterpret_cast<unsigned*>(stat + gridDim.x
+                                                           + 1), 1u);
+    __syncthreads();
+    const int bid = bid_s;
+    const int m = bid * ANCHOR_THREADS + threadIdx.x;
+    const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+    int64_t lo = 0, qg = 0, strand = 0, qpos = 0;
+    int cnt = 0;
+    unsigned mask = 0, first = 0;         // taken: of the first 32, chunk
+    int32_t rid[ANCHOR_CHUNK], posst[ANCHOR_CHUNK];
+    if (m < M) {
         const int64_t h = qm_hash[m];
-        lo = lower_bound(idx_h, 0, H, h);
-        cnt = mn(upper_bound(idx_h, lo, H, h) - lo, max_occ);
-        lo_cnt[m] = lo;
-        lo_cnt[M + m] = cnt;
-    } else {
-        lo = lo_cnt[m];
-        cnt = lo_cnt[M + m];
-    }
-    // in the write pass ntake holds the inclusive cumsum of the counts
-    int64_t w = write ? (m ? ntake[m - 1] : 0) : 0;
-    const int64_t strand = qm_strand[m];
-    const int64_t qpos = qm_pos[m] + q_pos_base[row];
-    for (int64_t o = 0; o < cnt; ++o) {
-        const int64_t a = lo + o;
-        const int64_t tr = idx_rid[a];
-        // no self hit, no filter row, and the pair-once gate
-        if (tr == qg || tr < 0 || (qmask[tr] > 0 && tr < qg)) continue;
-        if (write) {
-            const int64_t posst = idx_pos[a];
-            out[w] = qg;
-            out[A + w] = tr;
-            out[2 * A + w] = posst & POS_MASK;
-            out[3 * A + w] = (strand ^ (posst >> STRAND_BIT)) & 1;
-            out[4 * A + w] = qpos;
+        const int64_t row = qm_rid[m];
+        qg = q_rid_base[row];
+        strand = qm_strand[m];
+        qpos = qm_pos[m] + q_pos_base[row];
+        // h's bucket bounds its lower bound; outside [0, 2^32) the index
+        int64_t hi = H;
+        if (h >= 0 && h <= (int64_t)FULL) {
+            const int64_t i = h >> shift;
+            lo = bucket[i];
+            hi = bucket[i + 1];
         }
-        ++w;
+        lo = lower_bound(idx_h, lo, hi, h);
+        // the run of h from lo, at most max_occ entries, none past hi (the
+        // entry at hi is in a later bucket)
+        cnt = anchor_chunk(idx_h, idx_rid, qmask, lo, hi, h, qg, 0, max_occ,
+                           rid, first);
+        mask = first;
+        for (int o0 = ANCHOR_CHUNK; cnt == o0 && o0 < max_occ;
+             o0 += ANCHOR_CHUNK) {
+            int32_t r[ANCHOR_CHUNK];
+            unsigned t;
+            cnt += anchor_chunk(idx_h, idx_rid, qmask, lo, hi, h, qg, o0,
+                                max_occ, r, t);
+            if (o0 < 32) mask |= t << o0;
+        }
+        // the first chunk's positions, in flight across the wait below
+#pragma unroll
+        for (int j = 0; j < ANCHOR_CHUNK; ++j)
+            posst[j] = (first >> j) & 1 ? idx_pos[lo + j] : 0;
     }
-    if (!write) ntake[m] = w;
+    // the taken count: the first 32 by the mask, the gates again past them
+    int take = __popc(mask);
+    for (int o = 32; o < cnt; ++o)
+        take += anchor_taken(idx_rid[lo + o], qg, qmask);
+    // the block's exclusive scan of the taken counts, its total published
+    int incl = take;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += v;
+    }
+    if (lane == 31) part[w] = incl;
+    __syncthreads();
+    int64_t wpos = incl - take, total = 0;
+#pragma unroll
+    for (int j = 0; j < ANCHOR_WARPS; ++j) {
+        wpos += j < w ? part[j] : 0;
+        total += part[j];
+    }
+    if (threadIdx.x == 0)
+        *reinterpret_cast<volatile int64_t*>(stat + bid) = total + 1;
+    // the totals of the blocks before this one, each waited for
+    int64_t s = 0;
+    for (int j = threadIdx.x; j < bid; j += ANCHOR_THREADS) {
+        int64_t v;
+        do {
+            v = *reinterpret_cast<volatile const int64_t*>(stat + j);
+        } while (v == 0);
+        s += v - 1;
+    }
+    const int64_t base = block_sum(s, part2);
+    if (bid == (int)gridDim.x - 1 && threadIdx.x == 0)
+        stat[gridDim.x] = base + total;
+    if (!take) return;
+    wpos += base;
+    auto emit = [&](int64_t tr, int64_t ps) {
+        out[wpos] = qg;
+        out[stride + wpos] = tr;
+        out[2 * stride + wpos] = ps & POS_MASK;
+        out[3 * stride + wpos] = (strand ^ (ps >> STRAND_BIT)) & 1;
+        out[4 * stride + wpos] = qpos;
+        ++wpos;
+    };
+#pragma unroll
+    for (int j = 0; j < ANCHOR_CHUNK; ++j)
+        if ((first >> j) & 1) emit(rid[j], posst[j]);
+    // the rest of a run longer than a chunk: past the first 32, the gates
+    // again
+    for (int o = ANCHOR_CHUNK; o < cnt; ++o)
+        if (o < 32 ? (mask >> o) & 1
+                   : anchor_taken(idx_rid[lo + o], qg, qmask))
+            emit(idx_rid[lo + o], idx_pos[lo + o]);
 }
 
 // ---------------------------------------------------------------------------
@@ -512,23 +638,30 @@ int resident_blocks(const void* kernel, int smem) {
 
 extern "C" {
 
+// One launch on ceil(M / 256) blocks, stat (blocks + 2 int64) zeroed
+// first; out (5, stride) with stride at least A (M * max_occ: the launch
+// does not wait for A); shift = 32 - b for a directory of 2^b + 1 starts.
 int ndt_engine_anchor(const void* qm_rid, const void* qm_pos,
                       const void* qm_hash, const void* qm_strand,
                       const void* q_rid_base, const void* q_pos_base,
                       const void* qmask, const void* idx_h,
-                      const void* idx_rid, const void* idx_pos, void* lo_cnt,
-                      void* ntake, void* out, int M, long long H, long long A,
-                      int max_occ, int write, void* stream) {
+                      const void* idx_rid, const void* idx_pos,
+                      const void* bucket, void* stat, void* out, int M,
+                      long long H, long long stride, int shift, int max_occ,
+                      void* stream) {
     if (M <= 0) return 0;
-    const int threads = 256;
-    engine_anchor_kernel<<<(M + threads - 1) / threads, threads, 0,
-                           (cudaStream_t)stream>>>(
+    const int blocks = (M + ANCHOR_THREADS - 1) / ANCHOR_THREADS;
+    const cudaStream_t st = (cudaStream_t)stream;
+    const cudaError_t rc =
+        cudaMemsetAsync(stat, 0, (blocks + 2) * sizeof(int64_t), st);
+    if (rc != cudaSuccess) return (int)rc;
+    engine_anchor_kernel<<<blocks, ANCHOR_THREADS, 0, st>>>(
         (const int64_t*)qm_rid, (const int64_t*)qm_pos,
         (const int64_t*)qm_hash, (const int64_t*)qm_strand,
         (const int64_t*)q_rid_base, (const int64_t*)q_pos_base,
         (const int8_t*)qmask, (const int64_t*)idx_h, (const int32_t*)idx_rid,
-        (const int32_t*)idx_pos, (int64_t*)lo_cnt, (int64_t*)ntake,
-        (int64_t*)out, M, (int64_t)H, (int64_t)A, max_occ, write);
+        (const int32_t*)idx_pos, (const int32_t*)bucket, (int64_t*)stat,
+        (int64_t*)out, M, (int64_t)H, (int64_t)stride, shift, max_occ);
     return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,8 @@
 Counterpart of nextdenovo_tpu/overlap/engine.py.  Design:
 
   * the index is a hash-sorted flat table queried with vectorized binary
-    search instead of a bucketed hash table;
+    search (on the card within a bucket of a directory of hash starts)
+    instead of a bucketed hash table;
   * candidate overlaps come from diagonal-band voting over anchors (sorted
     once, then reduced per segment) rather than an O(n * lookback) chain
     DP — endpoints are anchor extents within the winning diagonal corridor.
@@ -15,10 +16,12 @@ The device program of one query batch (_match_block, _vote_emit) is three
 hand-written CUDA kernels (csrc/engine.cu) with two stable torch.sort
 lexsorts between them:
 
-  engine_anchor   replaces _match_block's lookup and expansion: binary
-                  search in the index, up to max_occ occurrences, the gates,
-                  the taken anchors compacted (a count pass, a cumsum, a
-                  write pass);
+  engine_anchor   replaces _match_block's lookup and expansion: a lower
+                  bound within the hash's bucket of a directory of the index
+                  (anchor_directory, made once a find_overlaps call), up to
+                  max_occ occurrences, the gates, the taken anchors
+                  compacted; one launch, each block's offset the totals of
+                  the blocks before it (no cumsum);
   vote_corridor   replaces _vote_emit's vote: per (query, target, strand)
                   group the bin counts (counted once into a tile in shared
                   memory), top_k corridors and each anchor's corridor, one
@@ -221,6 +224,9 @@ def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
 
 MAX_TOP_K = 8             # corridors a group the vote kernel keeps
 VOTE_TILE = 256           # runs of a group the vote kernel's tile holds
+ANCHOR_THREADS = 256      # minimizers a block of engine_anchor_kernel
+DIR_BUCKET = 8            # index entries a directory bucket averages, at most
+DIR_BITS_MAX = 24         # directory bits at most (2^24 + 1 starts, 64 MB)
 
 
 def engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
@@ -251,38 +257,68 @@ def engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
             (qm_strand[row] ^ (posst >> STRAND_BIT)) & 1, qpos[row])
 
 
-def _anchor_launch(lib, ins, lo_cnt, counts, out, M, H, A, max_occ, write):
-    """One launch of engine_anchor_kernel (count or write pass) on lo_cnt's
-    device: ins are the ten inputs' data pointers, out the (5, A) output's
-    (None in the count pass)."""
-    dev = lo_cnt.device
-    with torch.cuda.device(dev):
-        rc = lib.ndt_engine_anchor(
-            *ins, lo_cnt.data_ptr(), counts.data_ptr(), out, M, H, A,
-            max_occ, write, torch.cuda.current_stream(dev).cuda_stream)
+def directory_bits(H: int) -> int:
+    """b of engine_anchor's bucket directory for an index of H entries: the
+    least b with H <= DIR_BUCKET * 2^b (buckets of at most ~8 entries on
+    average), at most DIR_BITS_MAX."""
+    return min(max(-(-H // DIR_BUCKET) - 1, 0).bit_length(), DIR_BITS_MAX)
+
+
+def anchor_directory(idx_h):
+    """engine_anchor's bucket directory of the sorted index hashes idx_h:
+    (2^b + 1,) int32 on idx_h's device, b = directory_bits(H), entry i the
+    first index entry of hash >= i << (32 - b).  One torch.searchsorted of
+    the buckets' bounds, no host sync; find_overlaps makes it once."""
+    b = directory_bits(idx_h.shape[0])
+    step = 1 << (32 - b)
+    bounds = torch.arange(0, ((1 << b) + 1) * step, step, dtype=torch.int64,
+                          device=idx_h.device)
+    return torch.searchsorted(idx_h, bounds, out_int32=True)
+
+
+def _anchor_stat(M: int, dev):
+    """engine_anchor's block totals on dev and its block count nb: (nb + 2,)
+    int64, the kernel's, with A at nb once it has run."""
+    nb = -(-M // ANCHOR_THREADS)
+    return torch.empty(nb + 2, dtype=torch.int64, device=dev), nb
+
+
+def _anchor_launch(lib, ins, stat, out, M, H, stride, shift, max_occ,
+                   stream):
+    """One launch of engine_anchor_kernel on the current device: ins are the
+    eleven inputs' data pointers (the directory last), out the (5, stride)
+    output's (stride >= A)."""
+    rc = lib.ndt_engine_anchor(*ins, stat.data_ptr(), out, M, H, stride,
+                               shift, max_occ, stream)
     _build.check_launch("engine_anchor", rc)
 
 
 def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
-                  q_pos_base, qmask, idx_h, idx_rid, idx_pos, max_occ: int):
+                  q_pos_base, qmask, idx_h, idx_rid, idx_pos, max_occ: int,
+                  bucket=None):
     """A query batch's anchors against the index.
 
     qm_rid, qm_pos, qm_hash, qm_strand: (M,) int64 minimizers (rid = the
     batch row); q_rid_base, q_pos_base: (R,) int64 per row; qmask: (N,)
-    int8; idx_h (H,) int64 sorted, idx_rid / idx_pos (H,) int32.  Per
-    minimizer the first max_occ index entries of its hash, less self hits,
-    filter rows and the pair-once gate.  Returns (qr, t_rid, t_pos, rel,
-    qpos), (A,) int64 each, in flat (minimizer, occurrence) order.
+    int8; idx_h (H,) int64 sorted, idx_rid / idx_pos (H,) int32; bucket:
+    anchor_directory(idx_h), made here when not given.  Per minimizer the
+    first max_occ index entries of its hash, less self hits, filter rows and
+    the pair-once gate.  Returns (qr, t_rid, t_pos, rel, qpos), (A,) int64
+    each, in flat (minimizer, occurrence) order.
 
-    CPU tensors run the plain version; CUDA tensors launch the kernel twice
-    (count, then write) around a cumsum of the counts."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel once
+    (into rows of M * max_occ, the bound of A), then read the anchor count
+    A: one host sync."""
+    H = idx_h.shape[0]
+    if bucket is not None:
+        check_tensor("bucket", bucket, ((1 << directory_bits(H)) + 1,),
+                     torch.int32, idx_h.device)
     if qm_hash.device.type == "cpu":
         return engine_anchor_plain(qm_rid, qm_pos, qm_hash, qm_strand,
                                    q_rid_base, q_pos_base, qmask, idx_h,
                                    idx_rid, idx_pos, max_occ)
     dev = qm_hash.device
-    M, R, N, H = (qm_rid.shape[0], q_rid_base.shape[0], qmask.shape[0],
-                  idx_h.shape[0])
+    M, R, N = qm_rid.shape[0], q_rid_base.shape[0], qmask.shape[0]
     i64 = torch.int64
     for name, t, n, dt in (
             ("qm_rid", qm_rid, M, i64), ("qm_pos", qm_pos, M, i64),
@@ -293,26 +329,27 @@ def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
             ("idx_rid", idx_rid, H, torch.int32),
             ("idx_pos", idx_pos, H, torch.int32)):
         check_tensor(name, t, (n,), dt, dev)
+    if H > I32MAX:
+        raise ValueError(f"engine_anchor: an index of {H} entries (at most "
+                         f"{I32MAX})")
     lib = _build.kernels()
-    lo_cnt = torch.empty((2, M), dtype=i64, device=dev)
-    ntake = torch.empty(M, dtype=i64, device=dev)
+    if bucket is None:
+        bucket = anchor_directory(idx_h)
+    shift = 32 - directory_bits(H)
+    stat, nb = _anchor_stat(M, dev)
     ins = [t.data_ptr() for t in (qm_rid, qm_pos, qm_hash, qm_strand,
                                   q_rid_base, q_pos_base, qmask, idx_h,
-                                  idx_rid, idx_pos)]
-
-    def launch(counts, out, A, write):
-        _anchor_launch(lib, ins, lo_cnt, counts, out, M, H, A, max_occ,
-                       write)
-        _build.LAUNCHES["engine_anchor"] += 1
-
+                                  idx_rid, idx_pos, bucket)]
+    cap = M * max(max_occ, 0)
+    out = torch.empty((5, cap), dtype=i64, device=dev)
+    A = 0
     if M:
-        launch(ntake, None, 0, 0)
-    ends = torch.cumsum(ntake, 0)
-    A = int(ends[-1]) if M else 0
-    out = torch.empty((5, A), dtype=i64, device=dev)
-    if A:
-        launch(ends, out.data_ptr(), A, 1)
-    return tuple(out)
+        with torch.cuda.device(dev):
+            _anchor_launch(lib, ins, stat, out.data_ptr(), M, H, cap, shift,
+                           max_occ, torch.cuda.current_stream(dev).cuda_stream)
+        _build.LAUNCHES["engine_anchor"] += 1
+        A = int(stat[nb])
+    return out[:, :A].unbind(0)
 
 
 def group_starts(key_q, key_t):
@@ -531,7 +568,7 @@ def _chain_launch(lib, kq2, kt2, qp2, tp2, gstart, emit, rec, G, *, k: int,
 def _match_block(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base, q_pos_base,
                  qmask, idx: MiniIndex, k: int, max_occ: int,
                  diag_shift: int, min_cnt: int, min_span: int, cap_out: int,
-                 top_k: int = 1):
+                 top_k: int = 1, bucket=None):
     """Anchors + diagonal voting for one sketched query batch.
 
     qm_*: flat minimizer tensors (M,), rid = local row ids.
@@ -553,11 +590,12 @@ def _match_block(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base, q_pos_base,
     already-selected corridors, kept when its vote count is >= half the
     primary's and its query span does not overlap the primary's by more
     than 50%.
+    bucket: anchor_directory(idx.h), made by engine_anchor when not given.
     Returns (records dict of (n_out,) int64 tensors, n_out, overflow)
     """
     anchors = engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
                             q_pos_base, qmask, idx.h, idx.rid, idx.pos,
-                            max_occ)
+                            max_occ, bucket=bucket)
     return _vote_emit(
         *anchors, k=k, diag_shift=diag_shift, min_cnt=min_cnt,
         min_span=min_span, cap_out=cap_out, top_k=top_k)
@@ -673,6 +711,7 @@ def find_overlaps(store: SeqStore, query_rids, idx: MiniIndex, k: int, w: int,
         qmask_arr[np.asarray(query_mask, bool)[: len(lens)]] = 1
     qmask_dev = torch.from_numpy(qmask_arr).to(dev)
     cap_out = 256 * batch_rows + 256
+    bucket = anchor_directory(idx.h)      # engine_anchor's, once a call
 
     for sub in batches:
         with _tspan("engine/host_fill", rows=len(sub)):
@@ -686,7 +725,8 @@ def find_overlaps(store: SeqStore, query_rids, idx: MiniIndex, k: int, w: int,
             rec, n, overflow = _match_block(
                 m.rid, m.pos, m.hash, m.strand, base, pbase, qmask_dev, idx,
                 k=k, max_occ=max_occ, diag_shift=diag_shift, min_cnt=min_cnt,
-                min_span=min_span, cap_out=cap_out, top_k=top_k)
+                min_span=min_span, cap_out=cap_out, top_k=top_k,
+                bucket=bucket)
             if overflow > 0:
                 # rare: too many candidate groups; record the loss loudly
                 logging.getLogger(__name__).warning(

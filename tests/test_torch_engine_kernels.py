@@ -3,11 +3,13 @@ split into the plain versions of its three CUDA kernels (engine_anchor_plain,
 vote_corridor_plain, chain_emit_plain), against the JAX package's jitted
 _vote_emit and _match_block on the CPU, on numpy anchor sets made from a seed
 and on a batch of the 30 kb world of tests/test_torch_engine.py; and numpy
-models of the kernels' own algorithms (csrc/engine.cu: a thread a minimizer;
-a warp a group, its runs of bins counted once into a tile of
-te.VOTE_TILE runs with a loop for larger groups; a warp a group walking its
-corridor segments in one pass) against the plain versions, also at the
-tile's edge, and the group starts both kernels share.  Tolerance: exact,
+models of the kernels' own algorithms (csrc/engine.cu: a thread a minimizer,
+its lookup within a bucket of the index's directory, blocks' offsets from
+the totals of the blocks before; a warp a group, its runs of bins counted
+once into a tile of te.VOTE_TILE runs with a loop for larger groups; a warp
+a group walking its corridor segments in one pass) against the plain
+versions, on hashes over [0, 2^32) and at the tile's edge, and the group
+starts both kernels share; the directory against numpy.  Tolerance: exact,
 every record field, n_out and overflow."""
 import jax
 import numpy as np
@@ -166,25 +168,74 @@ def test_empty_inputs():
 FULL = 0xFFFFFFFF
 
 
-def _anchor_model(args, max_occ):
-    """engine_anchor_kernel: a thread a minimizer, the binary searches, the
-    first max_occ occurrences, the three gates; offsets by cumsum."""
+def _lower_bound(a, lo, hi, x):
+    while lo < hi:                        # first i in [lo, hi): a[i] >= x
+        mid = lo + ((hi - lo) >> 1)
+        if a[mid] < x:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _directory(ih):
+    """anchor_directory in numpy: the first entry of hash >= i << (32 - b),
+    and the shift 32 - b."""
+    s = 32 - te.directory_bits(len(ih))
+    b = np.arange((1 << (32 - s)) + 1, dtype=np.int64) << s
+    return np.searchsorted(ih, b, "left"), s
+
+
+def _anchor_model(args, max_occ, threads=te.ANCHOR_THREADS):
+    """engine_anchor_kernel: a thread a minimizer, its first entry by a
+    lower bound within its bucket of the directory (the whole index for a
+    hash outside [0, 2^32)), its count by the run of equal entries from
+    there (at most max_occ, none past the bucket), the three gates' verdicts
+    as a mask of the first 32 occurrences (past them, the gates again); the
+    exclusive scan of the taken counts within blocks of `threads`, each
+    block's offset the totals of the blocks before it.  Every output slot is
+    written exactly once."""
     (rid, pos, h, strand, rbase, pbase, qmask, ih, irid, ipos) = (
         x.numpy().astype(np.int64) for x in args)
-    out = [[] for _ in range(5)]
-    for m in range(len(h)):
-        lo = int(np.searchsorted(ih, h[m], "left"))
-        cnt = min(int(np.searchsorted(ih, h[m], "right")) - lo, max_occ)
-        qg = rbase[rid[m]]
-        for a in range(lo, lo + cnt):
-            tr = irid[a]
-            if tr == qg or tr < 0 or (qmask[tr] > 0 and tr < qg):
-                continue
-            for o, v in zip(out, (qg, tr, ipos[a] & ((1 << 30) - 1),
-                                  (strand[m] ^ (ipos[a] >> 30)) & 1,
-                                  pos[m] + pbase[rid[m]])):
-                o.append(v)
-    return [np.array(o, np.int64) for o in out]
+    H, M = len(ih), len(h)
+    bucket, shift = _directory(ih)
+    lo = np.zeros(M, np.int64)
+    cnt = np.zeros(M, np.int64)
+    take = np.zeros(M, np.int64)
+    mask = np.zeros(M, np.int64)
+    qg = rbase[rid] if M else np.zeros(0, np.int64)
+    gate = lambda a, m: not (irid[a] == qg[m] or irid[a] < 0 or (
+        qmask[irid[a]] > 0 and irid[a] < qg[m]))
+    for m in range(M):
+        b0, b1 = 0, H
+        if 0 <= h[m] <= FULL:
+            b0, b1 = bucket[h[m] >> shift], bucket[(h[m] >> shift) + 1]
+        lo[m] = _lower_bound(ih, b0, b1, h[m])
+        while (cnt[m] < max_occ and lo[m] + cnt[m] < b1
+               and ih[lo[m] + cnt[m]] == h[m]):
+            cnt[m] += 1
+        taken = [gate(lo[m] + o, m) for o in range(cnt[m])]
+        take[m] = sum(taken)
+        mask[m] = sum(1 << o for o, t in enumerate(taken[:32]) if t)
+    nb = -(-M // threads)
+    blocks = np.zeros(nb * threads, np.int64)
+    blocks[:M] = take
+    blocks = blocks.reshape(nb, threads)
+    off = (np.cumsum(blocks, 1) - blocks).reshape(-1)[:M]
+    btot = blocks.sum(1)
+    out = np.zeros((5, int(btot.sum())), np.int64)
+    written = np.zeros(out.shape[1], np.int64)
+    for m in range(M):
+        w = int(btot[: m // threads].sum() + off[m])
+        for o, a in enumerate(range(lo[m], lo[m] + cnt[m])):
+            if (mask[m] >> o) & 1 if o < 32 else gate(a, m):
+                out[:, w] = (qg[m], irid[a], ipos[a] & ((1 << 30) - 1),
+                             (strand[m] ^ (ipos[a] >> 30)) & 1,
+                             pos[m] + pbase[rid[m]])
+                written[w] += 1
+                w += 1
+    assert (written == 1).all()
+    return list(out)
 
 
 def _group_starts(*keys):
@@ -509,13 +560,35 @@ def test_chain_model_equals_plain_on_sorted_keys(top_k):
     assert emit.sum() > 20
 
 
-@pytest.mark.parametrize("case", ["max_occ 16", "max_occ 1", "gate off"])
-def test_engine_anchor_model_equals_plain(case):
-    """A synthetic index (hashes of more than max_occ entries, filter rows
-    at the end, self hits, the pair-once gate on half the reads, absent
-    hashes, minimizers of hash 0xFFFFFFFF, one read in three rows): the
-    kernel's per-minimizer loop gives the plain version's anchors, in
-    order."""
+def _anchor_index(rng, hashes, n_reads=50):
+    """A sorted index of these int64 hashes: hash 0xFFFFFFFF rows are filter
+    rows (rid -1), the others random rids, positions and strands."""
+    h = np.sort(np.asarray(hashes, np.int64))
+    irid = np.where(h == FULL, -1, rng.integers(0, n_reads, len(h)))
+    ipos = rng.integers(0, 20000, len(h)) | (rng.integers(0, 2, len(h)) << 30)
+    return h, irid.astype(np.int32), ipos.astype(np.int32)
+
+
+def _anchor_args(rng, index, qh, n_reads=50):
+    """engine_anchor's arguments for the query hashes qh against index: six
+    rows (read 3 thrice, with position bases), the pair-once gate on about
+    half the reads."""
+    M = len(qh)
+    qmask = (rng.random(n_reads) < 0.5).astype(np.int8)
+    return (rng.integers(0, 6, M).astype(np.int64),
+            rng.integers(0, 16384, M).astype(np.int64),
+            np.asarray(qh, np.int64), rng.integers(0, 2, M).astype(np.int64),
+            np.array([3, 3, 17, 20, 41, 3], np.int64),
+            np.array([0, 15000, 0, 0, 0, 30000], np.int64), qmask) + index
+
+
+def _anchor_sets():
+    """{case: (engine_anchor's arguments as numpy, max_occ)}.  A synthetic
+    index of small hashes (all in the directory's first bucket: runs of more
+    than max_occ entries, filter rows at the end, self hits, the pair-once
+    gate on half the reads, absent hashes, minimizers of hash 0xFFFFFFFF,
+    one read in three rows) at max_occ 16 and 1 and with the gate off; then
+    hashes over [0, 2^32), each set checked for what it holds."""
     rng = np.random.default_rng(43)
     n_reads, H, M = 50, 2000, 1500
     h = np.concatenate([np.sort(rng.integers(0, 300, H - 20)) * 7,
@@ -527,17 +600,164 @@ def test_engine_anchor_model_equals_plain(case):
     qh = (rng.integers(0, 330, M) * 7 + (rng.random(M) < 0.1)).astype(np.int64)
     qh[:5] = 0xFFFFFFFF
     qmask = (rng.random(n_reads) < 0.5).astype(np.int8)
-    if case == "gate off":
-        qmask[:] = 0
-    args = _torch((rng.integers(0, 6, M).astype(np.int64),
-                   rng.integers(0, 16384, M).astype(np.int64), qh,
-                   rng.integers(0, 2, M).astype(np.int64),
-                   np.array([3, 3, 17, 20, 41, 3], np.int64),
-                   np.array([0, 15000, 0, 0, 0, 30000], np.int64), qmask,
-                   h, irid, ipos))
-    max_occ = 1 if case == "max_occ 1" else 16
+    small = (rng.integers(0, 6, M).astype(np.int64),
+             rng.integers(0, 16384, M).astype(np.int64), qh,
+             rng.integers(0, 2, M).astype(np.int64),
+             np.array([3, 3, 17, 20, 41, 3], np.int64),
+             np.array([0, 15000, 0, 0, 0, 30000], np.int64), qmask,
+             h, irid, ipos)
+    sets = {"max_occ 16": (small, 16), "max_occ 1": (small, 1),
+            "gate off": (small[:6] + (np.zeros(n_reads, np.int8),)
+                         + small[7:], 16)}
+    uni = lambda n: rng.integers(0, 1 << 32, n)
+    pick = lambda a, n: rng.choice(np.asarray(a, np.int64), n)
+    s = 32 - te.directory_bits(2000)
+    # hashes at the bucket edges i << s - 1, i << s, i << s + 1, each 1-3
+    # times; queries at the edges +-2 of these buckets and of others
+    ed = rng.choice(np.arange(1, 1 << (32 - s)), 60, replace=False)
+    edge = (ed[:, None] << s) + np.array([-1, 0, 1])
+    edge = np.repeat(edge.ravel(), rng.integers(1, 4, edge.size))
+    idx = _anchor_index(rng, np.concatenate([edge, uni(2000 - len(edge))]))
+    near = (np.concatenate([ed, rng.integers(1, 1 << (32 - s), 40)])[:, None]
+            << s) + np.arange(-2, 3)
+    sets["bucket edges"] = (_anchor_args(rng, idx, pick(near.ravel(), 1500)),
+                            16)
+    # 600 entries in five buckets of 2^7: the others empty
+    s7 = 32 - te.directory_bits(600)
+    few = (rng.choice(1 << (32 - s7), 5, replace=False)[:, None] << s7
+           ) + rng.integers(0, 1 << s7, (5, 120))
+    idx = _anchor_index(rng, few.ravel())
+    sets["empty buckets"] = (_anchor_args(rng, idx, np.concatenate(
+        [uni(700), pick(few.ravel(), 300)])), 16)
+    # 150 entries (distinct hashes and runs) in one bucket
+    full_b = (77 << s) + np.repeat(rng.choice(1 << s, 100, replace=False),
+                                   rng.integers(1, 3, 100))[:150]
+    idx = _anchor_index(rng, np.concatenate([full_b, uni(2000 - len(full_b))]))
+    sets["a bucket of more than 32 entries"] = (_anchor_args(
+        rng, idx, np.concatenate([pick(full_b, 600), pick(full_b, 300) + 1,
+                                  uni(333)])), 16)
+    # 400 filter rows at the end and 30 entries just below them, in the
+    # last bucket
+    top = FULL - rng.integers(1, 40, 30)
+    idx = _anchor_index(rng, np.concatenate([np.full(400, FULL), top,
+                                             uni(1570)]))
+    sets["hundreds of filter rows"] = (_anchor_args(rng, idx, np.concatenate(
+        [np.full(50, FULL), pick(top, 300), FULL - rng.integers(0, 60, 300),
+         pick(idx[0], 350)])), 16)
+    # runs of 20-40 entries, and the largest hash's run ending at H
+    runs = np.repeat(uni(30), rng.integers(20, 41, 30))
+    last = np.full(25, runs.max() + 3)
+    idx = _anchor_index(rng, np.concatenate([runs, last]))
+    sets["runs past max_occ, one ending at H"] = (_anchor_args(
+        rng, idx, np.concatenate([pick(runs, 500), last[:200], uni(77)])), 16)
+    sets["runs past 32 at max_occ 40"] = (
+        sets["runs past max_occ, one ending at H"][0], 40)
+    # negative hashes and hashes of 2^32 and more, in the index and queried
+    odd = np.array([-(1 << 40), -7, -1, 1 << 32, (1 << 32) + 5, 1 << 45],
+                   np.int64)
+    idx = _anchor_index(rng, np.concatenate([np.repeat(odd, 3), uni(1900),
+                                             np.full(50, FULL)]))
+    sets["hashes past 2^32 and negative"] = (_anchor_args(
+        rng, idx, np.concatenate([pick(odd, 300), odd + 1, -odd[3:],
+                                  pick(idx[0], 600)])), 16)
+    sets["no minimizer"] = (_anchor_args(rng, idx, np.zeros(0, np.int64)), 16)
+    return sets
+
+
+ANCHOR_SETS = _anchor_sets()
+
+
+def _bucket_sizes(ih):
+    return np.diff(_directory(ih)[0])
+
+
+@pytest.mark.parametrize("case", list(ANCHOR_SETS))
+def test_engine_anchor_model_equals_plain(case):
+    """engine_anchor_kernel, modelled (the directory, the bounded
+    scan, the taken mask, the block offsets from per-block totals at the
+    kernel's block size and at 32), give the plain version's anchors in
+    order: on a synthetic index
+    of small hashes (runs of more than max_occ entries, filter rows, self
+    hits, the pair-once gate, absent hashes, 0xFFFFFFFF minimizers, a read
+    in three rows) and on hashes over [0, 2^32): at bucket edges, in empty
+    buckets, in a bucket of more than 32 entries, among hundreds of filter
+    rows, in runs past max_occ and one ending at H (also at max_occ 40, past
+    the mask's 32), negative and of 2^32 and more; M not a multiple of the
+    block, and M = 0."""
+    args, max_occ = ANCHOR_SETS[case]
+    args = _torch(args)
     got = te.engine_anchor(*args, max_occ=max_occ)
-    want = _anchor_model(args, max_occ)
-    assert len(want[0]) > 100
-    for x, y in zip(want, got):
-        assert np.array_equal(x, y.numpy())
+    for threads in (te.ANCHOR_THREADS, 32):
+        want = _anchor_model(args, max_occ, threads)
+        for x, y in zip(want, got):
+            assert np.array_equal(x, y.numpy())
+    M, ih, qh = len(args[0]), args[7].numpy(), args[2].numpy()
+    sizes = _bucket_sizes(ih)
+    assert M % 32 and M % te.ANCHOR_THREADS or case == "no minimizer"
+    assert (len(want[0]) > 100) == (case != "no minimizer")
+    if case == "bucket edges":
+        s = 32 - te.directory_bits(len(ih))
+        assert ((qh & ((1 << s) - 1)) == 0).sum() > 100
+        assert ((qh & ((1 << s) - 1)) == (1 << s) - 1).sum() > 100
+    if case == "empty buckets":
+        assert (sizes == 0).mean() > 0.9 and (qh > 0).all()
+    if case == "a bucket of more than 32 entries":
+        assert sizes.max() > 100
+    if case == "hundreds of filter rows":
+        assert (ih == FULL).sum() == 400 and sizes[-1] > 400
+    if case.startswith("runs past"):
+        assert (qh == ih[-1]).any() and (ih == ih[-1]).sum() > 16
+        assert (np.bincount(np.unique(ih, return_inverse=True)[1]) > 33).any()
+    if case == "hashes past 2^32 and negative":
+        assert (qh < 0).any() and (qh > FULL).any()
+        assert (ih < 0).any() and (ih > FULL).any()
+
+
+@pytest.mark.parametrize("H", [0, 1, 8, 9, 2000, 70_000])
+def test_anchor_directory(H):
+    """anchor_directory equals np.searchsorted of the buckets' bounds i <<
+    (32 - b) into the index hashes (filter rows and a repeated hash among
+    them), in int32, with b the least that leaves at most 8 entries a
+    bucket on average."""
+    rng = np.random.default_rng(H)
+    h = np.sort(np.concatenate([rng.integers(0, 1 << 32, H - H // 10),
+                                np.full(H // 10, FULL)]))
+    if H > 8:
+        h[: H // 5] = h[H // 5]
+    got = te.anchor_directory(torch.from_numpy(h))
+    want, s = _directory(h)
+    b = 32 - s
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+    assert H <= 8 << b and (b == 0 or H > 8 << (b - 1))
+    assert [te.directory_bits(n) for n in (10_128_568, 1 << 40)] == [21, 24]
+
+
+def test_match_block_with_and_without_directory():
+    """_match_block gives the same records with find_overlaps' directory
+    handed in and with engine_anchor making its own; a directory of the
+    wrong size is refused."""
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    g = simulate_genome(20_000, seed=5)
+    sim = simulate_reads(g, coverage=8, mean_len=2500, error_rate=0.10,
+                         seed=6)
+    ts = SeqStore.from_codes(sim.reads)
+    k, w = 15, 5
+    idx = te.build_index(ts, np.arange(len(ts)), k=k, w=w, max_occ=64,
+                         device="cpu")
+    rows = te._chunk_rows(np.arange(6), np.asarray(ts.length), k, w)
+    m = te._sketch_rows(ts, rows, k, w, 2 * len(rows) * 4096 // w + 1024,
+                        "cpu")
+    base = torch.tensor([r[0] for r in rows], dtype=torch.int64)
+    pbase = torch.tensor([r[1] for r in rows], dtype=torch.int64)
+    qmask = torch.ones(len(ts), dtype=torch.int8)
+    kw = dict(k=k, max_occ=16, diag_shift=8, min_cnt=4, min_span=500,
+              cap_out=256, top_k=4)
+    call = lambda **b: te._match_block(m.rid, m.pos, m.hash, m.strand, base,
+                                       pbase, qmask, idx, **kw, **b)
+    (r0, n0, o0), (r1, n1, o1) = call(), call(bucket=te.anchor_directory(
+        idx.h))
+    assert (n0, o0) == (n1, o1) and n0 > 5
+    for f in te.REC_FIELDS:
+        assert torch.equal(r0[f], r1[f]), f
+    with pytest.raises(ValueError, match="bucket"):
+        call(bucket=torch.zeros(3, dtype=torch.int32))
