@@ -60,7 +60,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   overlaps   find_overlaps on fixed batches of reads gives identical
              records on the card (the engine kernels launched) and on the
              CPU: ONT reads at k = 17, w = 10; HiFi reads (one longer than
-             CHUNK_LP) at k = 51, w = 51, the index's arrays identical too
+             CHUNK_LP) at k = 51, w = 51, the index's arrays identical too;
+             then the HiFi reads homopolymer-compressed (hpc): one sketch
+             batch's minimizers (every field), the hpc index's arrays and
+             find_overlaps (uncompressed queries) against that index,
+             identical card and CPU
   fast_path  band_align(R=1) on a few hundred ~2 kb pairs, the card against
              the CPU, with the launch counters set to 0 just before
   ext_path   input_type = corrected, task = assemble (stages 00, 04-06)
@@ -99,7 +103,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              myers_fwd, the identity of corrected reads against the truth
              they cover, the median share of its seed that a corrected
              read kept (at least 0.5), the longest contig (at least 0.3 x
-             the genome), and the contigs' 31-mer identity and total
+             the genome), and the contigs' 31-mer identity and total; then
+             build_index of the same reads at k = w = 51, raw and hpc, on
+             the card: wall (ended by a synchronise), entries, peak memory
   timing     each kernel at its path's shape against its plain version
              (exact equality again), with the least time the card could
              take for the same work; the Myers kernels also at 640, 1280,
@@ -1784,10 +1790,10 @@ def recentring(fi, base, tag=None):
     return line
 
 
-def _same_records(a, b, what):
+def _same_records(a, b, what, allow_empty=False):
     """Two OvlBlocks hold the same records, field by field."""
     import numpy as np
-    if len(a) == 0:
+    if len(a) == 0 and not allow_empty:
         raise RuntimeError(f"find_overlaps gave no records on {what}")
     if sorted(a.data) != sorted(b.data) or len(a) != len(b):
         raise RuntimeError(f"find_overlaps on {what}: {len(a)} records on "
@@ -1810,6 +1816,18 @@ def _same_index(a, b, what):
         x, y = getattr(a, f).cpu(), getattr(b, f)
         if x.shape != y.shape or not bool((x == y).all()):
             raise RuntimeError(f"index on {what}: field {f} differs between "
+                               "the card and the CPU")
+
+
+def _same_minimizers(a, b, what):
+    """Two sketches (Minimizers) hold the same minimizers, every field."""
+    if (a.n, a.n_all) != (b.n, b.n_all):
+        raise RuntimeError(f"sketch of {what}: {a.n} ({a.n_all}) minimizers "
+                           f"on the card, {b.n} ({b.n_all}) on the CPU")
+    for f in ("rid", "pos", "hash", "strand"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        if x.shape != y.shape or not bool((x == y).all()):
+            raise RuntimeError(f"sketch of {what}: field {f} differs between "
                                "the card and the CPU")
 
 
@@ -1886,6 +1904,49 @@ def phase_overlaps(dev):
     _same_records(a, out["cpu"], "the HiFi batch at k = 51")
     log(f"[overlaps] HiFi card == cpu: the index's arrays and {len(a)} "
         f"records identical")
+    hpc_overlaps(dev, store)
+
+
+def hpc_overlaps(dev, store):
+    """The HiFi batch homopolymer-compressed (hpc) at k = w = 51, the card
+    against the CPU: the sketch of the last 32 chunk rows in build_index's
+    order (the longest reads, the 20 kb read's chunks among them), the hpc
+    index's arrays, and find_overlaps against it.  Its queries are sketched
+    uncompressed, as in the reference, so few records are expected."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap.engine import (
+        CHUNK_LP, _chunk_rows, _sketch_rows, build_index, find_overlaps)
+    lens = np.asarray(store.length, np.int64)
+    rids = np.arange(len(store))
+    rows = _chunk_rows(rids[np.argsort(lens, kind="stable")], lens, 51, 51,
+                       hpc=True)
+    sub = rows[-32:]
+    if sub[-1][0] != sub[-2][0]:
+        raise RuntimeError("the hpc batch holds no chunked read")
+    cap = 2 * 32 * CHUNK_LP // 51 + 1024
+    out = {}
+    for d in (dev, "cpu"):
+        t0 = time.time()
+        out[str(d), "batch"] = _sketch_rows(store, sub, 51, 51, cap, d,
+                                            hpc=True)
+        out[str(d), "index"] = build_index(store, rids, k=51, w=51,
+                                           max_occ=64, hpc=True, device=d)
+        out[str(d)] = find_overlaps(
+            store, rids, out[str(d), "index"], k=51, w=51, max_occ=16,
+            min_cnt=4, min_span=500, top_k=4,
+            query_mask=np.ones(len(store), bool), device=d)
+        log(f"[overlaps] HiFi hpc k=51 w=51 {d}: batch of {len(sub)} rows "
+            f"{out[str(d), 'batch'].n} minimizers, index "
+            f"{out[str(d), 'index'].n} entries, {len(out[str(d)])} records "
+            f"in {time.time() - t0:.1f}s")
+    _same_minimizers(out[str(dev), "batch"], out["cpu", "batch"],
+                     "the HiFi batch's last 32 hpc rows")
+    _same_index(out[str(dev), "index"], out["cpu", "index"],
+                "the HiFi batch, hpc")
+    _same_records(out[str(dev)], out["cpu"], "the HiFi batch's hpc index",
+                  allow_empty=True)
+    log(f"[overlaps] HiFi hpc card == cpu: one batch's minimizers, the "
+        f"index's arrays and {len(out[str(dev)])} records identical")
 
 
 def phase_fast_path(dev):
@@ -2362,7 +2423,41 @@ def phase_hifi_path(dev, genome_size, workdir):
         raise RuntimeError(f"contig 31-mer identity {kid:.4f} not above 0.95")
     if not 0.5 * len(genome) < total < 1.6 * len(genome):
         raise RuntimeError(f"contig total {total} outside 0.5-1.6 x genome")
+    hpc_index_scale(dev, sim.reads)
     return launches
+
+
+def hpc_index_scale(dev, reads):
+    """build_index of the HiFi path's whole read set at k = w = 51 on the
+    card, raw and then homopolymer-compressed (hpc; no stage calls it):
+    each build's wall ended by a synchronise, its entries and its peak
+    device memory above what was allocated before it."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.overlap.engine import build_index
+    store = SeqStore.from_codes(reads)
+    rids = np.arange(len(store))
+    n = {}
+    for hpc in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        idx = build_index(store, rids, k=51, w=51, max_occ=64, hpc=hpc,
+                          device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        n[hpc] = idx.n
+        log(f"[hpc_index] {len(store)} reads, {int(store.total_bases)} bases,"
+            f" k=51 w=51 hpc={hpc}: build_index wall {wall:.3f}s, "
+            f"{idx.n} entries ({idx.h.shape[0]} rows), peak device memory "
+            f"{peak / 2**20:.1f} MiB above {base / 2**20:.1f} MiB")
+        del idx
+    if not 0 < n[True] < n[False]:
+        raise RuntimeError(f"the hpc index holds {n[True]} entries, the raw "
+                           f"one {n[False]}")
 
 
 def _host_rows(wd, k):

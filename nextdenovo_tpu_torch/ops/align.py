@@ -16,7 +16,9 @@ band of W = 256 cells:
     consume-t; ties DIAG > UP > LEFT) are packed 16 anti-diagonals per
     int32 word, tb[pair][word][cell]; `lo` is stored per anti-diagonal.
 
-Unit costs are edit distance (mismatch=1, gap=1).
+Unit costs are edit distance (mismatch=1, gap=1).  `band_align_native`
+is the native host aligner for callers that name it; band_align never
+routes to it.
 
 `band_align(R=1)` runs the narrow tier instead: a band of W = 128 cells on
 a FIXED in-word cadence lo(s) = base + (s + 1) // 2 shared by every pair,
@@ -552,6 +554,34 @@ def pad_for_align(seqs, max_len: int, W: int, front: int = 1) -> np.ndarray:
     for b, s in enumerate(seqs):
         out[b, front : front + len(s)] = s
     return out
+
+
+_B2C = np.frombuffer(b"ACGT", np.uint8)
+
+
+def band_align_native(queries, targets, hq: bool = False):
+    """The native O(ND) host aligner (native nd_band_align, the semantics of
+    the reference's align.c, incl. the align_hq preset for HiFi).  Same
+    results format as band_align; band_align never routes here, callers
+    name it explicitly."""
+    from ..native import band_align_cpu
+
+    res = []
+    for q, t in zip(queries, targets):
+        qstr = _B2C[np.asarray(q, np.uint8) & 3].tobytes().decode()
+        tstr = _B2C[np.asarray(t, np.uint8) & 3].tobytes().decode()
+        d, qa, ta = band_align_cpu(qstr, tstr, hq=hq)
+        if len(qa) <= 2 and (len(q) > 2 or len(t) > 2):
+            res.append(dict(dist=INF, reached=False, ok=False,
+                            ops=np.zeros(0, np.int8)))
+            continue
+        a = np.frombuffer(qa.encode(), np.uint8)
+        b = np.frombuffer(ta.encode(), np.uint8)
+        ops = np.where(b == ord("-"), OP_UP,
+                       np.where(a == ord("-"), OP_LEFT, OP_DIAG)).astype(np.int8)
+        res.append(dict(dist=int(np.sum(a != b)), reached=True, ok=True,
+                        ops=ops))
+    return res
 
 
 def band_align(queries: List[np.ndarray], targets: List[np.ndarray],

@@ -8,9 +8,9 @@ w-window, matching minimap2's density guarantee.
 
 k <= 31 packs into two (hi, lo) lanes (`sketch`); k <= 128 uses the generic
 multi-lane path (`sketch_wide`, the HiFi -k51 -w51 raw sketch).
-
-Not ported: homopolymer compression (the reference's hpc_compress and
-sketch_wide(hpc=True)), which no pipeline stage of the reference calls.
+`sketch_wide(hpc=True)` sketches the homopolymer-compressed reads
+(`hpc_compress`) and reports positions in original coordinates; no
+pipeline stage sets it.
 
 32-bit unsigned values are held in int64 tensors in [0, 2^32): wrap-around
 multiply, logical shifts and unsigned comparison then follow from ordinary
@@ -177,9 +177,11 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
 
 
 def _select(h, strand, pos, valid_k, lengths, k: int, w: int, cap: int,
-            own_lo, own_hi) -> Minimizers:
+            own_lo, own_hi, pos_map=None) -> Minimizers:
     """Window selection and compaction shared by sketch and sketch_wide.
-    h: (B, L) hashes with UMAX where no k-mer counts."""
+    h: (B, L) hashes with UMAX where no k-mer counts.  pos_map: optional
+    (B, L) original position of each (compressed) column; ownership is
+    gated on it and it is what `pos` reports."""
     dev = h.device
     B, L = h.shape
     _, warg = sliding_min_pair(h, pos, w)
@@ -197,8 +199,9 @@ def _select(h, strand, pos, valid_k, lengths, k: int, w: int, cap: int,
         sel = sel | (torch.where(wvalid, shifted, -1) == pos)
     sel = sel & valid_k & (h != UMAX)
     if own_lo is not None:
-        sel = sel & (pos >= own_lo.to(torch.int64)[:, None]) & \
-            (pos < own_hi.to(torch.int64)[:, None])
+        opos = pos if pos_map is None else pos_map
+        sel = sel & (opos >= own_lo.to(torch.int64)[:, None]) & \
+            (opos < own_hi.to(torch.int64)[:, None])
 
     flat = sel.reshape(-1)
     hits = torch.nonzero(flat)[:, 0]
@@ -206,7 +209,7 @@ def _select(h, strand, pos, valid_k, lengths, k: int, w: int, cap: int,
     hits = hits[:cap]
     return Minimizers(
         rid=hits // L,
-        pos=hits % L,
+        pos=hits % L if pos_map is None else pos_map.reshape(-1)[hits],
         hash=h.reshape(-1)[hits],
         strand=strand.reshape(-1)[hits],
         n=int(hits.shape[0]),
@@ -304,13 +307,42 @@ def hash_lanes(lanes):
     return h
 
 
-def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
-                cap: int, own_lo=None, own_hi=None) -> Minimizers:
-    """Long-k (k <= 128) minimizer sketch.  own_lo/own_hi (optional,
-    (B,)): emit only minimizers whose position falls in [own_lo, own_hi) —
-    the halo-chunking hook (see sketch())."""
+def hpc_compress(codes: torch.Tensor, lengths: torch.Tensor):
+    """Homopolymer-compress a padded batch: returns (codes_hpc, pos_map,
+    lengths_hpc), all over the whole (B, L) buffer, where codes_hpc[b, j]
+    is the j-th run base (padded with 4) and pos_map[b, j] the ORIGINAL
+    position of that run's first base (padded with 0).  Runs are of the
+    raw codes, so N (code 4) forms runs of its own; positions at or past
+    `lengths` are never kept."""
     dev = codes.device
     B, L = codes.shape
+    pos = torch.arange(L, device=dev, dtype=torch.int64)[None, :].expand(B, L)
+    in_read = pos < lengths.to(torch.int64)[:, None]
+    keep = in_read & ((pos == 0) | (codes != torch.roll(codes, 1, dims=1)))
+    # parked (non-kept) writes land in column L, which is sliced away, so
+    # they can never clobber a real run
+    tgt = torch.where(keep, torch.cumsum(keep, dim=1) - 1, L)
+    codes_hpc = torch.full((B, L + 1), 4, dtype=codes.dtype, device=dev)
+    pos_map = torch.zeros((B, L + 1), dtype=torch.int64, device=dev)
+    codes_hpc.scatter_(1, tgt, codes)
+    pos_map.scatter_(1, tgt, pos)
+    lengths_hpc = keep.sum(dim=1).to(lengths.dtype)
+    return codes_hpc[:, :L], pos_map[:, :L], lengths_hpc
+
+
+def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                cap: int, hpc: bool = False, own_lo=None,
+                own_hi=None) -> Minimizers:
+    """Long-k (k <= 128) minimizer sketch, optionally homopolymer-
+    compressed (hpc).  Positions are reported in original read
+    coordinates.  own_lo/own_hi (optional, (B,)): emit only minimizers
+    whose ORIGINAL-coordinate position falls in [own_lo, own_hi) — the
+    halo-chunking hook (see sketch())."""
+    dev = codes.device
+    B, L = codes.shape
+    pos_map = None
+    if hpc:
+        codes, pos_map, lengths = hpc_compress(codes, lengths)
     lengths = lengths.to(torch.int64)
     # minimal lane count: k // 16 + 1 covers the 16 * n - 1 packing bound;
     # for k <= 31 (2 lanes) hashes match sketch() exactly
@@ -324,4 +356,4 @@ def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     h = hash_lanes([torch.where(fwd_less, f, r) for f, r in zip(fl, rl)])
     h = torch.where(valid_k & ~equal, h, UMAX)
     return _select(h, strand, pos, valid_k, lengths, k, w, cap, own_lo,
-                   own_hi)
+                   own_hi, pos_map)

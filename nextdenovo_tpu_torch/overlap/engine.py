@@ -121,7 +121,7 @@ def _build_index(h, rid, pos, strand, lens, max_occ: int, device) -> MiniIndex:
 CHUNK_LP = 16384
 
 
-def _chunk_rows(rids, lens, k: int, w: int):
+def _chunk_rows(rids, lens, k: int, w: int, hpc: bool = False):
     """Split reads into sketch rows of buffer length <= CHUNK_LP.
 
     Each row OWNS a base range of its read and carries halos: a left halo
@@ -129,13 +129,19 @@ def _chunk_rows(rids, lens, k: int, w: int):
     most w-1 before it) and a right halo of w+k-2 bases (those windows'
     k-mers are complete).  With the sketcher's own_lo/own_hi gate, the
     union of owned minimizers over chunks is exactly the full-read
-    minimizer set.
+    minimizer set.  HPC rows (runs compress) use the reference's inflated
+    original-coord halos, 16x + 64: a run longer than that slack next to a
+    chunk edge can lose or move minimizers, as in the reference.
 
     Returns a list of rows (rid, g0, own_lo, own_hi, buf_len) with
     own_lo/own_hi buffer-local and g0 the buffer's original-coord start.
     """
-    halo_l = w - 1
-    halo_r = w + k - 2
+    if hpc:
+        halo_l = (w - 1) * 16 + 64
+        halo_r = (w + k - 1) * 16 + 64
+    else:
+        halo_l = w - 1
+        halo_r = w + k - 2
     own_len = CHUNK_LP - halo_l - halo_r
     assert own_len > 0
     rows = []
@@ -154,9 +160,10 @@ def _chunk_rows(rids, lens, k: int, w: int):
     return rows
 
 
-def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device):
+def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device,
+                 hpc: bool = False):
     """Sketch a batch of chunk rows as one (len(rows), L) launch.  k > 31
-    routes to the long-kmer sketcher (the HiFi -k51 -w51 path).
+    or hpc routes to the long-kmer/HPC sketcher (the HiFi -k51 -w51 path).
     Returned positions are BUFFER-local; callers add each row's g0."""
     L = max(max(r[4] for r in rows), 1)
     # int8 keeps the host->device copy 4x smaller (base codes are 0..4);
@@ -171,18 +178,20 @@ def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device):
         blens[i] = len(c)
         olo[i], ohi[i] = lo, hi
     to = lambda a: torch.from_numpy(a).to(device)
-    if k > 31:
-        return sketch_wide(to(codes), to(blens), k=k, w=w, cap=cap,
+    if k > 31 or hpc:
+        return sketch_wide(to(codes), to(blens), k=k, w=w, cap=cap, hpc=hpc,
                            own_lo=to(olo), own_hi=to(ohi))
     return sketch(to(codes), to(blens), k=k, w=w, cap=cap,
                   own_lo=to(olo), own_hi=to(ohi))
 
 
 def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
-                max_occ: int = 64, batch_rows: int = 32,
+                max_occ: int = 64, batch_rows: int = 32, hpc: bool = False,
                 device=None) -> MiniIndex:
     """Sketch reads `rids` of `store` and build a queryable index on
-    `device` (None = the GPU).
+    `device` (None = the GPU).  hpc: sketch the homopolymer-compressed
+    reads (positions stay in original coordinates); find_overlaps never
+    compresses its queries, as in the reference.
 
     Reads are batched in length order so each sketch batch carries rows of
     similar length, and long reads are halo-chunked (_chunk_rows).  Index
@@ -192,12 +201,12 @@ def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
     parts = []
     rids = np.asarray(rids)
     rids = rids[np.argsort(lens[rids], kind="stable")] if len(rids) else rids
-    rows = _chunk_rows(rids, lens, k, w)
+    rows = _chunk_rows(rids, lens, k, w, hpc=hpc)
     rows_lp = batch_rows * CHUNK_LP
     cap_mini = 2 * rows_lp // max(1, w) + 1024
     for s in range(0, len(rows), batch_rows):
         sub = rows[s : s + batch_rows]
-        m = _sketch_rows(store, sub, k, w, cap_mini, dev)
+        m = _sketch_rows(store, sub, k, w, cap_mini, dev, hpc=hpc)
         if m.n_all > m.n:
             raise RuntimeError(
                 f"sketch cap overflow building index: selected "

@@ -107,3 +107,48 @@ def test_hq_is_accepted_and_ignored():
     a = ta.band_align([q], [t], device="cpu")
     b = ta.band_align([q], [t], hq=True, device="cpu")
     assert_same_results(a, b)
+
+
+def _native_pairs():
+    """16 seeded pairs: noisy, equal, unrelated, very different lengths, and
+    lengths 0, 1 and 2."""
+    rng = np.random.default_rng(16)
+    qs, ts = [], []
+    for n, err in ((40, 0.1), (300, 0.15), (900, 0.12), (1500, 0.02),
+                   (120, 0.0), (60, 0.3)):
+        q, t = rand_pair(rng, n, err)
+        qs.append(q)
+        ts.append(t)
+    t = rng.integers(0, 4, 500).astype(np.int8)
+    qs += [t[100:250].copy(), rng.integers(0, 4, 200).astype(np.int8)]
+    ts += [t, rng.integers(0, 4, 260).astype(np.int8)]
+    for q_len, t_len in ((0, 5), (5, 0), (1, 1), (2, 2), (1, 2), (2, 40),
+                         (0, 0), (2, 1)):
+        qs.append(rng.integers(0, 4, q_len).astype(np.int8))
+        ts.append(rng.integers(0, 4, t_len).astype(np.int8))
+    return qs, ts
+
+
+@pytest.mark.parametrize("hq", [False, True])
+def test_band_align_native_equal(hq):
+    qs, ts = _native_pairs()
+    assert len(qs) == 16
+    ref = ja.band_align_native(qs, ts, hq=hq)
+    got = ta.band_align_native(qs, ts, hq=hq)
+    assert sum(r["ok"] for r in got) >= 8
+    assert_same_results(ref, got)
+
+
+def test_band_align_never_routes_to_native(monkeypatch):
+    """The port's band_align on the CPU runs the plain versions of its
+    tiers; only callers that name band_align_native reach the native
+    aligner."""
+    def refuse(*a, **k):
+        raise AssertionError("band_align reached band_align_native")
+
+    monkeypatch.setattr(ta, "band_align_native", refuse)
+    qs, ts = _small_set()
+    for R in (None, 1, 2):
+        for hq in (False, True):
+            res = ta.band_align(qs[:2], ts[:2], R=R, hq=hq, device="cpu")
+            assert all(r["ok"] for r in res)
