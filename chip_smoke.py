@@ -96,6 +96,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              and the main path's limits on the corrected reads and contigs;
              prints the stage walls, the launches by stage, the peak memory
              and how many corrected reads are byte-equal to main_path's
+             (on a machine of several cards, on the first only)
+  mesh_groups
+             the shards in two groups on the one card (two host threads
+             against one device) against one group, on the main path's
+             data: stage 01's mesh overlap step, the mesh sort of its
+             records and stage 03's first group of ~32.8k alignments, bit
+             for bit; each phase ran on both groups; walls and launches
+  mesh_cards the main path's reads with use_mesh = 8 through the CLI entry
+             in a process that sees min(4, device count) cards, the shards
+             spread over them, one host thread a card: raw.ovl and
+             sorted.ovl equal main_path's, every stage file equal to
+             mesh_path's, each card launched myers_fwd, vote_corridor and
+             chain_emit, the main path's limits; prints stage walls,
+             launches by stage, each card's name, peak memory (beside
+             mesh_path's) and share of the index, the mesh and kernel
+             spans by card.  On a machine of one card it prints that it
+             did not run
   hifi_path  read_type = hifi, task = all through the CLI entry on 0.4 %
              error reads (30x, 15 kb mean) of a 1 Mb genome, with the launch
              counters at 0 and the peak memory reset just before; checks
@@ -140,7 +157,8 @@ task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run; `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
 process of the two-host run, `launches_mesh` its launches on the
-use_mesh = 8 run.
+use_mesh = 8 run, `launches_mesh_cards` on the use_mesh = 8 run over the
+cards (null where the machine has one card).
 """
 from __future__ import annotations
 
@@ -2591,14 +2609,16 @@ def _first_diff(a_p, b_p):
 def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
     """The main path's reads and config with use_mesh = 8 in a fresh
     workdir through the CLI entry: stages 01, 02, 03, 04 and 06 run the
-    mesh path, eight shards on the one card.  Launch counters at 0 and the
+    mesh path, eight shards on one card (the first: on a machine of several
+    the CLI is given it as --device).  Launch counters at 0 and the
     peak memory reset just before.  Checks the markers, that raw.ovl and
     sorted.ovl equal the main path's and bl.json does once parsed (its
     seeds come in shard order), a launch of myers_fwd in each of stages 03,
     04 and 06, and the limits of PERF.md section 2; prints the stage walls,
     the launches by stage, the peak device memory and how many corrected
     reads are byte-equal to the main path's (the mesh path aligns long
-    supports whole, so not all need be).  Returns the launch counts."""
+    supports whole, so not all need be).  Returns the launch counts and the
+    peak device memory."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch import _build
@@ -2617,8 +2637,12 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
+    # one card: on a machine of several the CLI would spread the shards
+    # over all of them (phase_mesh_cards runs that)
+    one = (["--device", f"cuda:{torch.cuda.current_device()}"]
+           if torch.cuda.device_count() > 1 else [])
     t0 = time.time()
-    rc = cli_main(["run", cfg_p])
+    rc = cli_main(["run", cfg_p] + one)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(_build.LAUNCHES)
@@ -2680,7 +2704,7 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
         f"nd.asm.fasta byte-equal: {asm[0] == asm[1]}")
     _check_result("mesh_path", dev, wd, sim, genome)
     _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards)
-    return launches
+    return launches, peak
 
 
 def _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards, n_long=2):
@@ -2751,6 +2775,260 @@ def _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards, n_long=2):
         f"{[longest[s_] for s_ in pick]} bases, {n_pairs} pairs) give the "
         f"same {len(card)} corrected reads, base for base; CPU "
         f"{cpu_s:.1f}s")
+
+
+def _same_results(a, b):
+    """Two band_align result lists are equal pair for pair."""
+    import numpy as np
+    return len(a) == len(b) and all(
+        x["dist"] == y["dist"] and bool(x["reached"]) == bool(y["reached"])
+        and bool(x["ok"]) == bool(y["ok"])
+        and np.array_equal(np.asarray(x["ops"]), np.asarray(y["ops"]))
+        for x, y in zip(a, b))
+
+
+def phase_mesh_groups(card, workdir, n_shards=MESH_SHARDS):
+    """The mesh's shards in two groups on one card (make_mesh(8,
+    devices=[card, card]): two host threads against one device) against
+    one group (make_mesh(8, card)) on the main path's data, bit for
+    bit: the stage-01 mesh overlap step (mesh_raw_align), then
+    distributed_sort_filter on its records, then distributed_band_align on
+    the first group of stage 03's pairs (distributed_correct's first
+    GROUP_PAIRS).  Checks that the two-group calls ran each phase on both
+    groups (their `<phase>/card` spans); prints each call's wall (ended by
+    a synchronise) and launches."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.correct.driver import iter_seed_jobs
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.parallel.dist_correct import (
+        GROUP_PAIRS, distributed_band_align, group_pairs)
+    from nextdenovo_tpu_torch.parallel.dist_pipeline import mesh_raw_align
+    from nextdenovo_tpu_torch.parallel.dist_sort import \
+        distributed_sort_filter
+    from nextdenovo_tpu_torch.parallel.mesh import make_mesh
+    from nextdenovo_tpu_torch.pipeline.config import load_config
+    from nextdenovo_tpu_torch.pipeline.run import correct_kw
+    from nextdenovo_tpu_torch.utils import get_tracer
+
+    cfg = load_config(os.path.join(workdir, "run.cfg"))
+    kw = correct_kw(cfg)
+    wd = os.path.join(workdir, "wd")
+    store = SeqStore.load(os.path.join(wd, "00.db", "reads"))
+    meta = json.load(open(os.path.join(wd, "00.db", "meta.json")))
+    seed_mask = np.asarray(meta["seed_mask"], bool)
+    lens = np.asarray(store.length)
+    meshes = (("one group", make_mesh(n_shards, card)),
+              ("two groups", make_mesh(n_shards, devices=[card, card])))
+    tracer = get_tracer()
+
+    def run(what, tag, mesh, fn):
+        n0 = len(tracer.spans)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.time()
+        out = fn(mesh)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+        groups = {s_.attrs["card"] for s_ in tracer.spans[n0:]
+                  if s_.name.endswith("/card")}
+        log(f"[mesh_groups] {what}, {tag}: wall {wall:.2f}s, launches "
+            f"{json.dumps(launched)}, groups {sorted(groups)}")
+        if len(groups) != len(mesh.devices):
+            raise RuntimeError(f"mesh_groups: {what} on {tag} ran on "
+                               f"{sorted(groups)}")
+        return out
+
+    raw = [run("mesh_raw_align", tag, m, lambda m: mesh_raw_align(
+        store, seed_mask, m, k=cfg.raw_k, w=cfg.raw_w)) for tag, m in meshes]
+    _same_blocks_or_fail(raw[0], raw[1], "mesh_groups: raw records")
+    srt = [run("distributed_sort_filter", tag, m,
+               lambda m: distributed_sort_filter(
+                   raw[0], seed_mask, lens, m,
+                   max_bin_cov=meta["sort_max_depth"]))
+           for tag, m in meshes]
+    _same_blocks_or_fail(srt[0].block, srt[1].block,
+                         "mesh_groups: sorted records")
+    if list(srt[0].blacklist.items()) != list(srt[1].blacklist.items()):
+        raise RuntimeError("mesh_groups: the blacklists differ")
+    jobs = list(iter_seed_jobs(
+        srt[0].block, srt[0].blacklist, lens,
+        min_len_seed=kw["min_len_seed"], min_len_aln=kw["min_len_aln"],
+        min_cov_seed=kw["min_cov_seed"], max_cov_aln=kw["max_cov_aln"]))
+    owned = sorted(jobs, key=lambda j: j.seed % n_shards)
+    cum = np.cumsum([len(j.sups) for j in owned])
+    group = owned[: int(np.argmax(cum >= GROUP_PAIRS)) + 1] \
+        if cum[-1] >= GROUP_PAIRS else owned
+    pairs, segs = group_pairs(store, group)
+    res = [run(f"distributed_band_align of {len(pairs)} pairs", tag, m,
+               lambda m: distributed_band_align([p[1] for p in pairs], segs,
+                                                m)) for tag, m in meshes]
+    if not _same_results(res[0], res[1]):
+        raise RuntimeError("mesh_groups: distributed_band_align differs "
+                           "between one and two groups")
+    log(f"[mesh_groups] two groups on {card} equal one group bit for bit: "
+        f"{len(raw[0])} raw records, {len(srt[0].block)} sorted records and "
+        f"a blacklist of {len(srt[0].blacklist)} seeds, {len(pairs)} "
+        f"alignments of {len(group)} seed jobs")
+
+
+def _same_blocks_or_fail(a, b, what):
+    import numpy as np
+    if list(a.data) != list(b.data) or not all(
+            np.array_equal(np.asarray(a.data[k]), np.asarray(b.data[k]))
+            for k in a.data):
+        raise RuntimeError(f"{what} differ")
+
+
+def _same_stage_files(wd_a, wd_b):
+    """Every file of stages 01-06 (the markers aside) of two workdirs is
+    the same: .npz files array for array, the others byte for byte.
+    Returns the number of files compared."""
+    import numpy as np
+    n = 0
+    for st in STAGES[1:]:
+        names = [sorted(f for f in os.listdir(os.path.join(w, st))
+                        if not f.startswith(".")) for w in (wd_a, wd_b)]
+        if names[0] != names[1]:
+            raise RuntimeError(f"{st}: files {names[0]} against {names[1]}")
+        for f in names[0]:
+            a, b = (os.path.join(w, st, f) for w in (wd_a, wd_b))
+            if f.endswith(".npz"):
+                za, zb = (np.load(x, allow_pickle=True) for x in (a, b))
+                same = sorted(za.files) == sorted(zb.files) and all(
+                    np.array_equal(za[k], zb[k]) for k in za.files)
+            else:
+                same = open(a, "rb").read() == open(b, "rb").read()
+            if not same:
+                raise RuntimeError(f"{st}/{f} differs")
+            n += 1
+    return n
+
+
+def phase_mesh_cards(dev, workdir, sim, genome, one_card_peak,
+                     n_shards=MESH_SHARDS, timeout_s=420, wd_name="wd_cards",
+                     n_cards=None):
+    """The main path's reads and config with use_mesh = 8 through the CLI
+    entry, in a process of its own that sees n_cards cards (default
+    min(4, device_count()); CUDA_VISIBLE_DEVICES): the eight shards spread
+    over them, one host thread a card.  Checks the markers, that raw.ovl
+    and sorted.ovl equal the main path's, that every stage file equals the
+    one-card mesh_path run's, that the run used every card and each card
+    launched myers_fwd, vote_corridor and chain_emit, and the limits of
+    PERF.md section 2.  Prints the stage walls, the launches by stage, each
+    card's name, peak memory (against the one-card mesh run's: the Myers
+    tier bounds its planes at 4 GiB a launch on every card, so a card's
+    peak need not fall below it) and share of the index's entries, and the
+    mesh/* and kernel/* spans by card.  Returns the launches over the run,
+    or None on a machine of one card, where it does not run.  wd_name: the
+    run's workdir under `workdir` (a second run needs another)."""
+    import signal
+    import torch
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[mesh_cards] not run: this machine has {count} CUDA device, "
+            "the phase needs a second card")
+        return None
+    n_cards = n_cards or min(4, count)
+    text = open(os.path.join(workdir, "run.cfg")).read()
+    cfg_p = os.path.join(workdir, f"run_{wd_name}.cfg")
+    with open(cfg_p, "w") as fh:
+        fh.write(text.replace("workdir = wd\n", f"workdir = {wd_name}\n"
+                              f"use_mesh = {n_shards}\n"))
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    visible = (visible.split(",") if visible
+               else [str(i) for i in range(count)])[:n_cards]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=",".join(visible),
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    log_p = os.path.join(workdir, f"{wd_name}.log")
+    t0 = time.time()
+    with open(log_p, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "nextdenovo_tpu_torch", "run", cfg_p],
+            cwd=workdir, env=env, stdout=out, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall = time.time() - t0
+    lines = open(log_p).readlines()
+    if rc != 0:
+        raise RuntimeError(
+            "the CLI entry over the cards "
+            + ("timed out" if rc is None else f"returned {rc}")
+            + f" after {wall:.1f}s; its log ends:\n{''.join(lines[-40:])}")
+    log(f"[mesh_cards] task=all use_mesh={n_shards} over {n_cards} cards "
+        f"(CUDA_VISIBLE_DEVICES={env['CUDA_VISIBLE_DEVICES']}): wall "
+        f"{wall:.1f}s from the process's start")
+    for line in lines:
+        if "use_mesh=" in line or "mesh: " in line:
+            log("[mesh_cards] log: " + line.rstrip())
+    wd = os.path.join(workdir, wd_name)
+    for st in STAGES:
+        if not os.path.exists(os.path.join(wd, st, ".done")):
+            raise RuntimeError(f"stage {st} left no .done marker")
+    rows = [json.loads(l) for l in open(os.path.join(wd, "trace.jsonl"))]
+    marks = {r["name"][len("launches/"):]: r for r in rows
+             if r["name"].startswith("launches/")}
+    names = list(KERNEL_INFO)
+    prev_t, prev, walls, in_stage = t0, dict.fromkeys(names, 0), [], {}
+    for st in STAGES:
+        walls.append(f"{st} {marks[st]['t0'] - prev_t:.1f}")
+        in_stage[st] = {n: marks[st][n] - prev[n] for n in names
+                        if marks[st][n] - prev[n]}
+        prev_t, prev = marks[st]["t0"], marks[st]
+    log(f"[mesh_cards] stage walls s (00.db from the process's start): "
+        f"{', '.join(walls)}")
+    log(f"[mesh_cards] launches by stage: {json.dumps(in_stage)}")
+    cards = next(r["cards"] for r in rows if r["name"] == "mesh/cards")
+    if len(cards) != n_cards:
+        raise RuntimeError(f"the run reported {len(cards)} cards, not "
+                           f"{n_cards}")
+    entries = [r["card_entries"] for r in rows
+               if r["name"] == "mesh/build_index"]
+    for i, (idx, c) in enumerate(sorted(cards.items())):
+        share = [e[i] / max(1, sum(e)) for e in entries]
+        below = c["peak_mib"] * 2**20 < one_card_peak
+        log(f"[mesh_cards] card {idx} ({c['name']}): peak device memory "
+            f"{c['peak_mib']:.1f} MiB ({'below' if below else 'not below'} "
+            f"the one-card mesh run's {one_card_peak / 2**20:.1f} MiB), "
+            f"share of the index's entries "
+            f"in stages 01/04/06 {', '.join(f'{x:.4f}' for x in share)}, "
+            "launches " + json.dumps({k: v for k, v in c["launches"].items()
+                                      if v}))
+        for n in ("myers_fwd", "vote_corridor", "chain_emit"):
+            if c["launches"].get(n, 0) < 1:
+                raise RuntimeError(f"card {idx} launched no {n}")
+    by = {}
+    for r in rows:
+        if r["name"].startswith(("mesh/", "kernel/")) \
+                and r["name"] != "mesh/cards":
+            key = (r["name"], r.get("card", ""))
+            n_, w_ = by.get(key, (0, 0.0))
+            by[key] = (n_ + 1, w_ + r["wall"])
+    log("[mesh_cards] spans (name, card: calls, wall s): " + "; ".join(
+        f"{n} {c}: {k_}, {w_:.3f}" for (n, c), (k_, w_) in sorted(by.items())))
+    wd_main, wd_mesh = (os.path.join(workdir, w) for w in ("wd", "wd_mesh"))
+    for rel in ("01.raw_align/raw.ovl.npz", "02.sort_align/sorted.ovl.npz"):
+        diff = _first_diff(os.path.join(wd_main, rel), os.path.join(wd, rel))
+        if diff:
+            raise RuntimeError(f"{rel} over the cards differs from the main "
+                               f"path's: {diff}")
+    n_files = _same_stage_files(wd_mesh, wd)
+    log(f"[mesh_cards] raw.ovl and sorted.ovl equal to main_path's; all "
+        f"{n_files} files of stages 01-06 equal to the one-card mesh run's")
+    _check_result("mesh_cards", dev, wd, sim, genome)
+    return {n: marks["06.ctg_cns"][n] for n in names}
 
 
 def _anchor(c, g, k=25, tries=20):
@@ -3070,8 +3348,14 @@ def main() -> int:
         launches, facts = phase_main_path(dev, GENOME_SIZE, workdir)
         mh_launches = phase_multihost_path(workdir)
         with watchdog(480, "the mesh phase"):
-            mesh_launches = phase_mesh_path(dev, workdir, facts["sim"],
-                                            facts["genome"])
+            mesh_launches, mesh_peak = phase_mesh_path(
+                dev, workdir, facts["sim"], facts["genome"])
+        with watchdog(300, "the mesh_groups phase"):
+            card0 = torch.device("cuda", torch.cuda.current_device())
+            phase_mesh_groups(card0, workdir)
+        with watchdog(480, "the mesh_cards phase"):
+            cards_launches = phase_mesh_cards(
+                dev, workdir, facts["sim"], facts["genome"], mesh_peak)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_hifi_")
@@ -3097,6 +3381,8 @@ def main() -> int:
             launches_hifi=hifi_launches[name],
             launches_multihost=[h[name] for h in mh_launches],
             launches_mesh=mesh_launches[name],
+            launches_mesh_cards=(None if cards_launches is None
+                                 else cards_launches[name]),
             **{k: t[k] for k in ("host_native_ms", "wrapper_ms",
                                  "ms_l2_flushed", "ms_each_warm",
                                  "directory_ms", "searchsorted_ms",

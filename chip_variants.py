@@ -89,9 +89,9 @@ PARENT_DIR (git archive), in turns parent, this, this, parent.  First
 --engine-anchor-turn of each (a process each): engine_anchor at the main
 path's batch through the package's public wrapper, its kernels' device time by
 name from torch.profiler and the whole call by the host clock, warm and with
-the L2 flushed before each call.  Then each tree's own chip_smoke main and
-HiFi paths in a workdir of their own; every stage file of the first parent
-and the first of this checkout's runs must be byte-equal.
+the L2 flushed before each call.  Then each tree's own chip_smoke main, mesh
+(use_mesh = 8) and HiFi paths in a workdir of their own; every stage file of
+the first parent and the first of this checkout's runs must be byte-equal.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -636,10 +636,11 @@ def main_turns(parent) -> int:
     """--turns PARENT: this checkout against the one in PARENT (an earlier
     tree, unpacked with git archive), in turns parent, this, this, parent:
     engine_anchor_turn of each, then each checkout's own chip_smoke
-    main and HiFi paths (stage walls, engine/match) in a workdir of its own.
-    Every stage file of the first parent and the first of this checkout's
-    runs (the files under a stage's directory, the .done markers aside,
-    which hold times) must be byte-equal."""
+    main, mesh (use_mesh = 8 on the one card) and HiFi paths (stage walls,
+    engine/match) in a workdir of its own.  Every stage file of the first
+    parent and the first of this checkout's runs (the files under a stage's
+    directory, the .done markers aside, which hold times) must be
+    byte-equal."""
     import filecmp
     here = os.path.dirname(os.path.abspath(__file__))
     parent = os.path.abspath(parent)
@@ -652,7 +653,8 @@ def main_turns(parent) -> int:
     runs = tempfile.mkdtemp(prefix="chip_variants_turns_")
     code = ("import chip_smoke as c, torch, sys; d = torch.device('cuda'); "
             "c.phase_env(); c.phase_build(); w = sys.argv[1]; "
-            "c.phase_main_path(d, c.GENOME_SIZE, w + '/main'); "
+            "l, f = c.phase_main_path(d, c.GENOME_SIZE, w + '/main'); "
+            "c.phase_mesh_path(d, w + '/main', f['sim'], f['genome']); "
             "c.phase_hifi_path(d, c.HIFI_GENOME_SIZE, w + '/hifi')")
     wds = []
     for i, tree in enumerate(order):
@@ -668,8 +670,9 @@ def main_turns(parent) -> int:
     for dp, _, fs in os.walk(wds[0]):
         for f in fs:
             rel = os.path.relpath(os.path.join(dp, f), wds[0])
-            parts = rel.split(os.sep)     # path/wd/<stage>/.../file
-            if (f == ".done" or len(parts) < 4 or parts[1] != "wd"
+            parts = rel.split(os.sep)     # path/wd[_mesh]/<stage>/.../file
+            if (f == ".done" or len(parts) < 4
+                    or parts[1] not in ("wd", "wd_mesh")
                     or not parts[2][:2].isdigit()):
                 continue
             if not filecmp.cmp(os.path.join(wds[0], rel),
@@ -677,7 +680,7 @@ def main_turns(parent) -> int:
                 raise RuntimeError(f"{rel} differs between the parent and "
                                    "this checkout")
             n_files += 1
-    log(f"[turns] {n_files} stage files of the main and HiFi paths "
+    log(f"[turns] {n_files} stage files of the main, mesh and HiFi paths "
         "byte-equal, parent against this checkout")
     return 0
 

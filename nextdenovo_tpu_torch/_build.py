@@ -34,19 +34,36 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-Wno-unused-function", "-shared"]
 
-# launches per kernel wrapper: a wrapper adds one where it launches its
-# CUDA kernel and nowhere else, so a run can show which kernels it used
+# launches per kernel wrapper: a wrapper adds one (count_launch) where it
+# launches its CUDA kernel and nowhere else, so a run can show which kernels
+# it used; CARD_LAUNCHES holds the same counts by card index
 LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
             "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0,
             "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0}
+CARD_LAUNCHES = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+_load_lock = threading.Lock()
 _kernels = None
 
 
+def count_launch(name: str, dev) -> None:
+    """One launch of kernel `name` on CUDA device `dev`: the mesh's cards
+    launch from threads of their own, so the counts are kept under a
+    lock."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+        card = CARD_LAUNCHES.setdefault(dev.index or 0,
+                                        dict.fromkeys(LAUNCHES, 0))
+        card[name] += 1
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        CARD_LAUNCHES.clear()
 
 
 def find_nvcc() -> str:
@@ -153,41 +170,46 @@ def build(native: bool = True, kernels: bool = True) -> dict:
 def kernels() -> ctypes.CDLL:
     """The loaded CUDA kernel library with argtypes set."""
     global _kernels
-    if _kernels is None:
-        build(native=False)
-        lib = ctypes.CDLL(KERNEL_LIB)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.ndt_myers_fwd.restype = ci
-        lib.ndt_myers_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                      ci, ci, ci, ci, vp]
-        lib.ndt_myers_tb.restype = ci
-        lib.ndt_myers_tb.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                     ci, ci, ci, ci, vp]
-        lib.ndt_wave_fwd.restype = ci
-        lib.ndt_wave_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
-                                     ci, ci, ci, ci, ci, vp]
-        lib.ndt_wave_tb.restype = ci
-        lib.ndt_wave_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        lib.ndt_ext_fwd.restype = ci
-        lib.ndt_ext_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                    ci, vp]
-        lib.ndt_wave_fast_fwd.restype = ci
-        lib.ndt_wave_fast_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
-                                          ci, ci, ci, ci, vp]
-        lib.ndt_wave_fast_tb.restype = ci
-        lib.ndt_wave_fast_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
-        ll = ctypes.c_longlong
-        lib.ndt_engine_anchor.restype = ci
-        lib.ndt_engine_anchor.argtypes = [vp] * 13 + [ci, ll, ll, ci, ci, vp]
-        lib.ndt_vote_corridor.restype = ci
-        lib.ndt_vote_corridor.argtypes = [vp] * 7 + [ci, ci, ci, vp]
-        lib.ndt_chain_emit.restype = ci
-        lib.ndt_chain_emit.argtypes = [vp] * 7 + [ll, ci, ci, ci, ci, ci,
-                                                  ctypes.c_float, vp]
-        lib.ndt_error_string.restype = ctypes.c_char_p
-        lib.ndt_error_string.argtypes = [ci]
-        _kernels = lib
+    with _load_lock:
+        if _kernels is None:
+            _kernels = _load_kernels()
     return _kernels
+
+
+def _load_kernels() -> ctypes.CDLL:
+    build(native=False)
+    lib = ctypes.CDLL(KERNEL_LIB)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.ndt_myers_fwd.restype = ci
+    lib.ndt_myers_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                  ci, ci, ci, ci, vp]
+    lib.ndt_myers_tb.restype = ci
+    lib.ndt_myers_tb.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                 ci, ci, ci, ci, vp]
+    lib.ndt_wave_fwd.restype = ci
+    lib.ndt_wave_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
+                                 ci, ci, ci, ci, ci, vp]
+    lib.ndt_wave_tb.restype = ci
+    lib.ndt_wave_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    lib.ndt_ext_fwd.restype = ci
+    lib.ndt_ext_fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                ci, vp]
+    lib.ndt_wave_fast_fwd.restype = ci
+    lib.ndt_wave_fast_fwd.argtypes = [vp, vp, vp, vp, vp, vp,
+                                      ci, ci, ci, ci, vp]
+    lib.ndt_wave_fast_tb.restype = ci
+    lib.ndt_wave_fast_tb.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    ll = ctypes.c_longlong
+    lib.ndt_engine_anchor.restype = ci
+    lib.ndt_engine_anchor.argtypes = [vp] * 13 + [ci, ll, ll, ci, ci, vp]
+    lib.ndt_vote_corridor.restype = ci
+    lib.ndt_vote_corridor.argtypes = [vp] * 7 + [ci, ci, ci, vp]
+    lib.ndt_chain_emit.restype = ci
+    lib.ndt_chain_emit.argtypes = [vp] * 7 + [ll, ci, ci, ci, ci, ci,
+                                              ctypes.c_float, vp]
+    lib.ndt_error_string.restype = ctypes.c_char_p
+    lib.ndt_error_string.argtypes = [ci]
+    return lib
 
 
 def check_launch(name: str, rc: int) -> None:

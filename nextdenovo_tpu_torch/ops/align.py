@@ -242,7 +242,7 @@ def wave_fwd(qpad: torch.Tensor, rtpad: torch.Tensor, mn: torch.Tensor,
             lo.data_ptr(), stats.data_ptr(), B, QP, TP, n_words, a_max,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wave_fwd", rc)
-    _build.LAUNCHES["wave_fwd"] += 1
+    _build.count_launch("wave_fwd", dev)
     return tb, lo, stats
 
 
@@ -309,7 +309,7 @@ def wave_tb(tb: torch.Tensor, lo: torch.Tensor, mn: torch.Tensor):
             ok.data_ptr(), B, n_words, a_max,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wave_tb", rc)
-    _build.LAUNCHES["wave_tb"] += 1
+    _build.count_launch("wave_tb", dev)
     return ops, ok.to(torch.bool)
 
 
@@ -435,7 +435,7 @@ def wave_fast_fwd(qpad: torch.Tensor, rtpad: torch.Tensor, mn: torch.Tensor,
             base.data_ptr(), stats.data_ptr(), B, QP, TP, n_words,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wave_fast_fwd", rc)
-    _build.LAUNCHES["wave_fast_fwd"] += 1
+    _build.count_launch("wave_fast_fwd", dev)
     return tb, base, stats
 
 
@@ -534,7 +534,7 @@ def wave_fast_tb(tb: torch.Tensor, base: torch.Tensor, mn: torch.Tensor):
             ok.data_ptr(), B, n_words, a_max,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("wave_fast_tb", rc)
-    _build.LAUNCHES["wave_fast_tb"] += 1
+    _build.count_launch("wave_fast_tb", dev)
     return ops, ok.to(torch.bool)
 
 

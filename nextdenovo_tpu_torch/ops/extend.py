@@ -135,7 +135,7 @@ def ext_fwd(qbuf: torch.Tensor, tbuf: torch.Tensor, mn: torch.Tensor,
             planes.data_ptr(), B, M, N, match, mism, gapo, gape,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("ext_fwd", rc)
-    _build.LAUNCHES["ext_fwd"] += 1
+    _build.count_launch("ext_fwd", dev)
     return planes
 
 

@@ -215,7 +215,7 @@ def myers_fwd(win0: torch.Tensor, qtop: torch.Tensor, tch: torch.Tensor,
             final.data_ptr(), n_steps, B, pitch, nw,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("myers_fwd", rc)
-    _build.LAUNCHES["myers_fwd"] += 1
+    _build.count_launch("myers_fwd", dev)
     return score, planes[..., :B], final
 
 
@@ -343,7 +343,7 @@ def myers_tb(planes: torch.Tensor, mvec: torch.Tensor, nvec: torch.Tensor,
             n_max, B, pitch, nw,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check_launch("myers_tb", rc)
-    _build.LAUNCHES["myers_tb"] += 1
+    _build.count_launch("myers_tb", dev)
     return evs, i_f, ok.to(torch.bool)
 
 
@@ -441,60 +441,66 @@ def _myers_batch(queries, targets, nw: int, dev: torch.device):
 
     W = 32 * nw
     B = len(queries)
-    swapped = []
-    qs, ts = [], []
-    for q, t in zip(queries, targets):
-        if len(q) >= len(t):
-            qs.append(np.asarray(q, np.uint8))
-            ts.append(np.asarray(t, np.uint8))
-            swapped.append(False)
-        else:
-            qs.append(np.asarray(t, np.uint8))
-            ts.append(np.asarray(q, np.uint8))
-            swapped.append(True)
-    m = np.array([len(q) for q in qs], np.int32)
-    n = np.array([len(t) for t in ts], np.int32)
-    off = np.clip((W - (m - n)) // 2, 16, W - 16).astype(np.int32)
-    feasible = ((m - n) < (W - off - 2)) & (n >= 1)
-    n_pad = max(int(n.max()), 1)
-    # sentinel-padded char matrices (int8 keeps the host->device copy
-    # small); the per-column streams and initial windows are built on device
-    qp_w = int(m.max()) + W + 2
-    qpad = np.full((B, qp_w), 4, np.int8)
-    tpad = np.full((B, n_pad), 4, np.int8)
-    for b in range(B):
-        qpad[b, : m[b]] = qs[b]
-        tpad[b, : n[b]] = ts[b]
+    # the host side is split into spans: the pads and copies in, the
+    # launches, the copies out, the expansion
+    with _tspan("kernel/myers_prep", pairs=B):
+        swapped = []
+        qs, ts = [], []
+        for q, t in zip(queries, targets):
+            if len(q) >= len(t):
+                qs.append(np.asarray(q, np.uint8))
+                ts.append(np.asarray(t, np.uint8))
+                swapped.append(False)
+            else:
+                qs.append(np.asarray(t, np.uint8))
+                ts.append(np.asarray(q, np.uint8))
+                swapped.append(True)
+        m = np.array([len(q) for q in qs], np.int32)
+        n = np.array([len(t) for t in ts], np.int32)
+        off = np.clip((W - (m - n)) // 2, 16, W - 16).astype(np.int32)
+        feasible = ((m - n) < (W - off - 2)) & (n >= 1)
+        n_pad = max(int(n.max()), 1)
+        # sentinel-padded char matrices (int8 keeps the host->device copy
+        # small); the per-column streams and initial windows are built on
+        # device
+        qp_w = int(m.max()) + W + 2
+        qpad = np.full((B, qp_w), 4, np.int8)
+        tpad = np.full((B, n_pad), 4, np.int8)
+        for b in range(B):
+            qpad[b, : m[b]] = qs[b]
+            tpad[b, : n[b]] = ts[b]
 
-    m_d = torch.from_numpy(m).to(dev)
-    n_d = torch.from_numpy(n).to(dev)
-    off_d = torch.from_numpy(off).to(dev)
-    qtop, tch, win0 = _build_streams(
-        torch.from_numpy(qpad).to(dev), torch.from_numpy(tpad).to(dev),
-        off_d, nw=nw)
+        m_d = torch.from_numpy(m).to(dev)
+        n_d = torch.from_numpy(n).to(dev)
+        off_d = torch.from_numpy(off).to(dev)
+        qtop, tch, win0 = _build_streams(
+            torch.from_numpy(qpad).to(dev), torch.from_numpy(tpad).to(dev),
+            off_d, nw=nw)
     # one launch of each kernel; the span records the launch's shape
     with _tspan("kernel/myers_batch", pairs=B, columns=n_pad):
         score, planes, final = myers_fwd(win0, qtop, tch, n_d, off_d, nw=nw)
         evs, i_f, ok = myers_tb(planes, m_d, n_d, off_d, nw=nw)
         del planes
-    score = score.cpu().numpy()
-    final = final.cpu().numpy().view(np.uint32)
-    evs = evs.cpu().numpy()
-    i_f = i_f.cpu().numpy()
-    okv = ok.cpu().numpy()
+    with _tspan("kernel/myers_out", pairs=B):
+        score = score.cpu().numpy()
+        final = final.cpu().numpy().view(np.uint32)
+        evs = evs.cpu().numpy()
+        i_f = i_f.cpu().numpy()
+        okv = ok.cpu().numpy()
 
-    dist = tail_walk(score, final, m, n, off)
-    okv = okv & feasible
-    sw = np.asarray(swapped, bool)
-    # native single-pass expansion (swap applied in C)
-    flat, offs = _native_expand(evs, n, i_f, okv, sw)
-    flat = flat.view(np.int8)
-    res = []
-    for b in range(B):
-        if okv[b]:
-            res.append(dict(dist=int(dist[b]), reached=True, ok=True,
-                            ops=flat[offs[b] : offs[b + 1]]))
-        else:
-            res.append(dict(dist=int(dist[b]), reached=False, ok=False,
-                            ops=np.zeros(0, np.int8)))
+    with _tspan("kernel/myers_expand", pairs=B):
+        dist = tail_walk(score, final, m, n, off)
+        okv = okv & feasible
+        sw = np.asarray(swapped, bool)
+        # native single-pass expansion (swap applied in C)
+        flat, offs = _native_expand(evs, n, i_f, okv, sw)
+        flat = flat.view(np.int8)
+        res = []
+        for b in range(B):
+            if okv[b]:
+                res.append(dict(dist=int(dist[b]), reached=True, ok=True,
+                                ops=flat[offs[b] : offs[b + 1]]))
+            else:
+                res.append(dict(dist=int(dist[b]), reached=False, ok=False,
+                                ops=np.zeros(0, np.int8)))
     return res

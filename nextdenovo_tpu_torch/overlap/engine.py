@@ -356,7 +356,7 @@ def engine_anchor(qm_rid, qm_pos, qm_hash, qm_strand, q_rid_base,
         with torch.cuda.device(dev):
             _anchor_launch(lib, ins, stat, out.data_ptr(), M, H, cap, shift,
                            max_occ, torch.cuda.current_stream(dev).cuda_stream)
-        _build.LAUNCHES["engine_anchor"] += 1
+        _build.count_launch("engine_anchor", dev)
         A = int(stat[nb])
     return out[:, :A].unbind(0)
 
@@ -440,7 +440,7 @@ def vote_corridor(key_q, key_t, key_b, diag, qpos, *, diag_shift: int,
     if A:
         _vote_launch(lib, key_t, key_b, diag, qpos, gstart, key_t2, qp2_key,
                      A, diag_shift, top_k)
-        _build.LAUNCHES["vote_corridor"] += 1
+        _build.count_launch("vote_corridor", dev)
     return key_t2, qp2_key
 
 
@@ -554,7 +554,7 @@ def chain_emit(kq2, kt2, qp2, tp2, *, k: int, top_k: int, min_cnt: int,
     rec = torch.empty((8, A), dtype=torch.int64, device=dev)
     if A:
         _chain_launch(lib, kq2, kt2, qp2, tp2, gstart, emit, rec, A, **kw)
-        _build.LAUNCHES["chain_emit"] += 1
+        _build.count_launch("chain_emit", dev)
     return emit, rec
 
 

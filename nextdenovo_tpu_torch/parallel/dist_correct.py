@@ -8,8 +8,10 @@ that order.  Every (support, seed segment) pair of a job is aligned WHOLE
 correct.driver.correct_seeds does (_chunk_sup_pairs), and passes no `hq` —
 by distributed_band_align, and the native consensus runs per seed.
 
-distributed_band_align is ops.align.band_align on the pairs sorted by
-length: its Myers tier (ops.myers.myers_align, csrc/myers.cu's myers_fwd
+distributed_band_align deals the pairs to the shards round-robin, and each
+card of the mesh runs ops.align.band_align on its shards' pairs, sorted by
+length, on a host thread of its own (parallel/mesh.Mesh.for_each_card):
+band_align's Myers tier (ops.myers.myers_align, csrc/myers.cu's myers_fwd
 and myers_tb) stands for the reference's distributed_myers_step, and the
 pairs that leave its band retry on the wide-band wavefront (band_align's
 R = 2 tier, csrc/wave.cu's wave_fwd and wave_tb).  The reference pads
@@ -42,22 +44,46 @@ GROUP_PAIRS = 1 << 15
 
 
 def distributed_band_align(queries, targets, mesh: Mesh):
-    """Banded alignment of arbitrary (query, target) pairs over the mesh:
-    band_align (the Myers tier, then the wide-band retry) on the pairs in
-    ascending order of their longer side, so that each Myers sub-batch
-    pads to lengths close to its own.  The reference deals the pairs
-    round-robin to its shards; each pair's result is its own, so the
-    shards' order is not kept here.  Returns band_align-shaped dicts in
+    """Banded alignment of arbitrary (query, target) pairs over the mesh.
+    The pairs are dealt to the shards round-robin, pair i to shard i % n,
+    as the reference deals them; each card aligns its shards' pairs in one
+    band_align call on its device (the Myers tier, then the wide-band
+    retry), in ascending order of their longer side, so that each Myers
+    sub-batch pads to lengths close to its own.  Each pair's result is its
+    own, whatever launch it shares.  Returns band_align-shaped dicts in
     input order."""
-    order = sorted(range(len(queries)),
-                   key=lambda i: max(len(queries[i]), len(targets[i])))
-    out = band_align([np.asarray(queries[i], np.int8) for i in order],
-                     [np.asarray(targets[i], np.int8) for i in order],
-                     device=mesh.device)
-    res = [None] * len(order)
-    for i, r in zip(order, out):
-        res[i] = r
+    n = mesh.n_shards
+
+    def align(dev, shards):
+        mine = [i for i in range(len(queries)) if i % n in shards]
+        order = sorted(mine, key=lambda i: max(len(queries[i]),
+                                              len(targets[i])))
+        out = band_align([np.asarray(queries[i], np.int8) for i in order],
+                         [np.asarray(targets[i], np.int8) for i in order],
+                         device=dev)
+        got = dict(zip(order, out))
+        return [[(i, got[i]) for i in range(s, len(queries), n)]
+                for s in shards]
+
+    res = [None] * len(queries)
+    for part in mesh.for_each_card("mesh/band_align", align):
+        for i, r in part:
+            res[i] = r
     return res
+
+
+def group_pairs(store: SeqStore, group: List[SeedJob]):
+    """The (support, seed segment) pairs of a group of seed jobs, in job
+    order: ([(job index, support, segment start, segment end)], [segment
+    codes])."""
+    pairs, segs = [], []
+    for gi, job in enumerate(group):
+        seed_codes = store.get(job.seed)
+        for (t, rev, ss, se, sqs, sqe) in job.sups:
+            pairs.append((gi, store.subseq(t, sqs, sqe + 1, rc=bool(rev)),
+                          ss, se))
+            segs.append(seed_codes[ss : se + 1].astype(np.int8))
+    return pairs, segs
 
 
 def distributed_correct(store: SeqStore, sorted_blk, blacklist: Dict,
@@ -89,14 +115,7 @@ def distributed_correct(store: SeqStore, sorted_blk, blacklist: Dict,
     futures = []
 
     def flush(group, ex):
-        pairs = []       # (job index, support, segment start, segment end)
-        segs = []
-        for gi, job in enumerate(group):
-            seed_codes = store.get(job.seed)
-            for (t, rev, ss, se, sqs, sqe) in job.sups:
-                pairs.append((gi, store.subseq(t, sqs, sqe + 1, rc=bool(rev)),
-                              ss, se))
-                segs.append(seed_codes[ss : se + 1].astype(np.int8))
+        pairs, segs = group_pairs(store, group)
         with span("mesh/align_group", jobs=len(group), pairs=len(pairs)):
             res = distributed_band_align([p[1] for p in pairs], segs, mesh)
         per_job = [([], [], [], []) for _ in group]

@@ -13,14 +13,16 @@ The reference program, per shard of an n-shard mesh:
   * diagonal voting, chain scoring and emission run per home shard through
     the single-device engine's code (overlap/engine._vote_emit).
 
-Here the shards run one after another on the mesh's device (parallel/mesh):
-the buckets hold compacted rows, so what moves is the real minimizers and
-anchors, never the reference's padded caps (at 1 Mb / 30x with
-use_mesh = 8 those pad ~10 M minimizers to 24 M slots a shard, and their
-anchors to 780 M slots).  Every cap keeps its meaning: a bucket takes the
-first `cap` selected rows in the reference's order and counts the rest as
-drops, so the records, their order per shard and the overflow count equal
-the JAX package's.
+Here each card of the mesh runs its shards on a host thread of its own
+(parallel/mesh.Mesh.for_each_card), and the two all_to_all copy the buckets
+between cards at the joins.  The buckets hold compacted rows, so what moves
+is the real minimizers and anchors, never the reference's padded caps (at
+1 Mb / 30x with use_mesh = 8 those pad ~10 M minimizers to 24 M slots a
+shard, and their anchors to 780 M slots).  Every cap keeps its meaning: a
+bucket takes the first `cap` selected rows in the reference's order and
+counts the rest as drops, so the records, their order per shard and the
+overflow count equal the JAX package's, whichever card finishes first: the
+counts are summed in shard order after each join.
 """
 from __future__ import annotations
 
@@ -162,26 +164,24 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
     shift_bits = 32 - max(1, (n - 1).bit_length()) if n > 1 else 32
     codes = shard_rows(mesh, codes)
     lens_np = _np(lens).astype(np.int64).reshape(n, -1)
-    rid_base = shard_rows(mesh, rid_base).to(torch.int64)
-    ih, irid, ipos, istr = (shard_rows(mesh, x).to(torch.int64)
+    rid_base = shard_rows(mesh, rid_base, torch.int64)
+    ih, irid, ipos, istr = (shard_rows(mesh, x, torch.int64)
                             for x in (idx_h, idx_rid, idx_pos, idx_strand))
-    qm = None
-    if qmask is not None:
-        qm = replicate(mesh, qmask)
-        if not bool((qm > 0).any()):
-            qm = None             # all-zeros disables the gate
-    B_local = codes.shape[1]
+    # an all-zeros qmask disables the gate
+    qm = replicate(mesh, qmask) if qmask is not None \
+        and bool((_np(qmask) > 0).any()) else None
+    B_local = codes[0].shape[0]
 
     # ---- sketch each source shard, route minimizers to index shards ------
     cap_route = cap_mini // max(1, n) * 2
-    n_over = 0
-    sent = []
-    with span("mesh/sketch_route", shards=n):
-        for s in range(n):
+
+    def sketch_route(dev, shards):
+        out = []
+        for s in shards:
             rid, pos, h, strand = _sketch_shard(codes[s], lens_np[s], k, w)
             # sketch-cap overflow counts: the reference keeps the first
             # cap_mini minimizers in (row, position) order
-            n_over += max(int(rid.shape[0]) - cap_mini, 0)
+            over = max(int(rid.shape[0]) - cap_mini, 0)
             rid, pos, h, strand = (x[:cap_mini] for x in (rid, pos, h, strand))
             qid = rid_base[s][rid]
             owner = ((h >> shift_bits) % n if n > 1
@@ -189,50 +189,58 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
             buckets, drop = bucketize((h, pos, strand, qid), owner,
                                       torch.ones_like(h, dtype=torch.bool),
                                       n, cap_route)
-            n_over += drop
-            sent.append(buckets)
-    recv = all_to_all(sent)
+            out.append((buckets, over + drop))
+        return out
+
+    sent = mesh.for_each_card("mesh/sketch_route", sketch_route)
+    n_over = psum(o for _, o in sent)
+    recv = all_to_all(mesh, [b for b, _ in sent])
     sent = None
 
     # ---- lookup in each index shard, route anchors back home -------------
     # the reference's route-back bucket: (n * cap_route rows received,
     # padded) x max_occ / n * 2 slots
     cap_back = cap_route * max_occ * 2
-    back = []
-    with span("mesh/lookup_route", shards=n):
-        for d in range(n):
+
+    def lookup_route(dev, shards):
+        out = []
+        for d in shards:
             got = tuple(torch.cat([b[i] for b in recv[d]]) for i in range(4))
             recv[d] = None
-            anchors = _lookup(got, ih[d], irid[d], ipos[d], istr[d], qm,
-                              max_occ)
+            anchors = _lookup(got, ih[d], irid[d], ipos[d], istr[d],
+                              None if qm is None else qm[dev], max_occ)
             if n == 1:
-                back.append([anchors])
+                out.append(([anchors], 0))
                 continue
             dest = torch.div(anchors[0] - qid0, B_local, rounding_mode="floor")
             # anchors routed out of the mesh are drops, not silent losses
-            n_over += int(((dest < 0) | (dest >= n)).sum())
+            outside = int(((dest < 0) | (dest >= n)).sum())
             buckets, drop = bucketize(anchors, dest,
                                       torch.ones_like(dest, dtype=torch.bool),
                                       n, cap_back)
-            n_over += drop
-            back.append(buckets)
-    home = all_to_all(back)
+            out.append((buckets, outside + drop))
+        return out
+
+    back = mesh.for_each_card("mesh/lookup_route", lookup_route)
+    n_over += psum(o for _, o in back)
+    home = all_to_all(mesh, [b for b, _ in back])
     back = None
 
     # ---- voting, chaining and emission on each home shard ----------------
-    records, n_outs = [], []
-    with span("mesh/vote_emit", shards=n):
-        for q in range(n):
+    def vote_emit(dev, shards):
+        out = []
+        for q in shards:
             anchors = tuple(torch.cat([b[i] for b in home[q]])
                             for i in range(5))
             home[q] = None
-            rec, n_out, over = _vote_emit_home(
+            out.append(_vote_emit_home(
                 anchors, k=k, diag_shift=diag_shift, min_cnt=min_cnt,
-                min_span=min_span, cap_out=cap_out, top_k=top_k)
-            records.append(rec)
-            n_outs.append(n_out)
-            n_over += over
-    return records, psum(n_outs), n_over
+                min_span=min_span, cap_out=cap_out, top_k=top_k))
+        return out
+
+    done = mesh.for_each_card("mesh/vote_emit", vote_emit)
+    n_over += psum(over for _, _, over in done)
+    return [rec for rec, _, _ in done], psum(n for _, n, _ in done), n_over
 
 
 def distributed_overlap_autocap(codes, lens, rid_base, idx_h, idx_rid,
@@ -287,10 +295,16 @@ def mesh_overlaps(index_store: SeqStore, index_rids, queries: SeqStore,
     rows, size the caps, run the autocap.  Returns its per-shard
     records."""
     n = mesh.n_shards
-    with span("mesh/build_index", k=k, w=w):
+    with span("mesh/build_index", k=k, w=w) as sp:
         idx = build_index(index_store, index_rids, k=k, w=w,
                           max_occ=index_max_occ, device=mesh.device)
         ih, irid, ipos, istr = partition_index(idx, n)
+        if sp is not None:
+            # each card's share of the index: the entries of its shards
+            per = (irid.reshape(n, -1) >= 0).sum(1)
+            sp.attrs["card_entries"] = [
+                int(per[r.start:r.stop].sum())
+                for r in map(mesh.shards_of, range(len(mesh.devices)))]
     idx = None
     codes, lens, rid_base, L, B = _pow2_rows(queries, n)
     cap_mini = 2 * (B // n) * L // max(1, w) + 1024

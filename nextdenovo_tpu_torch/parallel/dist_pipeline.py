@@ -1,7 +1,7 @@
 """Pipeline stages of the mesh path (PyTorch/CUDA port of
 nextdenovo_tpu/parallel/dist_pipeline.py).  `use_mesh = N` (N > 1, one
-host) routes the heavy stages through the mesh layer, N shards on one
-device:
+host) routes the heavy stages through the mesh layer, N shards over the
+mesh's cards, one host thread a card (parallel/mesh.py):
 
   raw_align  -> distributed_overlap_step   (hash-sharded index,
                                             minimizer routing)
@@ -95,7 +95,8 @@ def mesh_cns_align(cns_store: SeqStore, mesh: Mesh, *, k: int, w: int,
                    min_cnt: int = 3, max_occ: int = 16):
     """cns_align over the mesh: all-vs-all candidates from the mesh overlap
     step (pair-once gated), realignment by distributed_band_align; end
-    extension and the sequential dovetail filter run as on one device.
+    extension (on mesh.device) and the sequential dovetail filter run as
+    on one device.
     Returns (OvlBlock, bl_info, CnsInfo) like
     cns_overlap_stage(return_info=True)."""
     from ..overlap.cns import (bl_info_for_graph, extend_overlap_ends,

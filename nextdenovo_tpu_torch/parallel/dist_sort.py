@@ -12,7 +12,8 @@ Rows that tie on all seven keys (the same seed, match, span, target, ts, qs
 and strand, differing only in te) keep the order in which their shard
 received them: the JAX package's multi-operand sort keeps that order on
 the CPU, and the port's sorts are stable passes (tests/test_torch_mesh.py
-holds such a tie).  The shards run one after another on the mesh's device.
+holds such a tie).  Each card of the mesh runs its shards on a host thread
+of its own (parallel/mesh.Mesh.for_each_card).
 """
 from __future__ import annotations
 
@@ -35,40 +36,53 @@ def distributed_seed_sort_step(rec8, is_seed, lens, *, cap_route: int,
     n_tot the records the shards received, n_sent the records they routed
     (they differ when a bucket overflowed cap_route)."""
     n_shards = mesh.n_shards
-    rec8 = shard_rows(mesh, rec8).to(torch.int64)
+    rec8 = shard_rows(mesh, rec8, torch.int64)
     is_seed = replicate(mesh, np.asarray(is_seed, bool))
-    lens = replicate(mesh, lens).to(torch.int64)
-    n_reads = is_seed.shape[0]
-    sent, n_sent = [], []
-    for s in range(n_shards):
-        rec = rec8[s]
-        q, rev, qs, qe = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
-        t, ts, te, match = rec[:, 4], rec[:, 5], rec[:, 6], rec[:, 7]
-        keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
-        sq = torch.clamp(q, 0, n_reads - 1)
-        st_ = torch.clamp(t, 0, n_reads - 1)
-        # the two symmetrized views (overlap.sort.symmetrize semantics, ends
-        # made inclusive)
-        v_q = keep & is_seed[sq] & (lens[sq] >= qe)
-        v_t = keep & is_seed[st_] & (lens[st_] >= te)
-        cols = [torch.cat([a, b]) for a, b in (
-            (q, t), (rev, rev), (qs, ts), (qe - 1, te - 1),
-            (t, q), (ts, qs), (te - 1, qe - 1), (match, match))]
-        valid = torch.cat([v_q, v_t])
-        buckets, _ = bucketize(cols, cols[0] % n_shards, valid, n_shards,
-                               cap_route)
-        sent.append(buckets)
-        n_sent.append(int(valid.sum()))
-    rows = []
-    for got in all_to_all(sent):
-        qn, rv, s_, e_, tn, ts2, te2, mt = (
-            torch.cat([b[i] for b in got]) for i in range(8))
-        # total order shared with the host path: (qname, -match, span,
-        # tname, ts, qs, rev)
-        perm = _stable_lexsort([qn, -mt, e_ - s_, tn, ts2, s_, rv])
-        rows.append(torch.stack([qn, rv, s_, e_, tn, ts2, te2, mt],
-                                dim=1)[perm])
-    return rows, psum(len(r) for r in rows), psum(n_sent)
+    lens = replicate(mesh, np.asarray(lens, np.int64))
+    n_reads = len(lens[mesh.device])
+
+    def route(dev, shards):
+        out = []
+        for s in shards:
+            rec = rec8[s]
+            q, rev, qs, qe = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
+            t, ts, te, match = rec[:, 4], rec[:, 5], rec[:, 6], rec[:, 7]
+            keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
+            sq = torch.clamp(q, 0, n_reads - 1)
+            st_ = torch.clamp(t, 0, n_reads - 1)
+            # the two symmetrized views (overlap.sort.symmetrize semantics,
+            # ends made inclusive)
+            v_q = keep & is_seed[dev][sq] & (lens[dev][sq] >= qe)
+            v_t = keep & is_seed[dev][st_] & (lens[dev][st_] >= te)
+            cols = [torch.cat([a, b]) for a, b in (
+                (q, t), (rev, rev), (qs, ts), (qe - 1, te - 1),
+                (t, q), (ts, qs), (te - 1, qe - 1), (match, match))]
+            valid = torch.cat([v_q, v_t])
+            buckets, _ = bucketize(cols, cols[0] % n_shards, valid, n_shards,
+                                   cap_route)
+            out.append((buckets, int(valid.sum())))
+        return out
+
+    sent = mesh.for_each_card("mesh/sort_route", route)
+    n_sent = psum(c for _, c in sent)
+    recv = all_to_all(mesh, [b for b, _ in sent])
+    sent = None
+
+    def sort(dev, shards):
+        out = []
+        for d in shards:
+            qn, rv, s_, e_, tn, ts2, te2, mt = (
+                torch.cat([b[i] for b in recv[d]]) for i in range(8))
+            recv[d] = None
+            # total order shared with the host path: (qname, -match, span,
+            # tname, ts, qs, rev)
+            perm = _stable_lexsort([qn, -mt, e_ - s_, tn, ts2, s_, rv])
+            out.append(torch.stack([qn, rv, s_, e_, tn, ts2, te2, mt],
+                                   dim=1)[perm])
+        return out
+
+    rows = mesh.for_each_card("mesh/sort", sort)
+    return rows, psum(len(r) for r in rows), n_sent
 
 
 def distributed_sort_filter(raw: OvlBlock, is_seed: np.ndarray,
@@ -99,16 +113,20 @@ def distributed_sort_filter(raw: OvlBlock, is_seed: np.ndarray,
     # in the symmetrized record set (global across shards)
     present = np.unique(np.concatenate([r[:, 0] for r in shard_recs]))
     min_seed_len = int(lens64[present].min()) if len(present) else 0
+
+    def filter_(dev, shards):
+        # the native filter releases the interpreter lock: the cards'
+        # threads filter their shards at once, on the host
+        return [_filter_sorted_native(
+            shard_recs[s], lens64, min_seed_len, max_bin_cov, max_flank_len,
+            is_hq) if len(shard_recs[s]) else None for s in shards]
+
     rows_parts, bl = [], {}
-    for shard_rows_ in shard_recs:
-        if not len(shard_rows_):
-            continue
-        rows_out, bl_d = _filter_sorted_native(
-            shard_rows_, lens64, min_seed_len, max_bin_cov, max_flank_len,
-            is_hq)
-        rows_parts.append(rows_out)
-        # shard by shard: bl.json lists the seeds in shard order
-        bl.update(bl_d)
+    for part in mesh.for_each_card("mesh/sort_filter", filter_):
+        if part is not None:
+            rows_parts.append(part[0])
+            # shard by shard: bl.json lists the seeds in shard order
+            bl.update(part[1])
     if not rows_parts:
         return SortResult(OvlBlock.empty(), {})
     out = np.concatenate(rows_parts)

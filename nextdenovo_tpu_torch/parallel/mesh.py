@@ -1,48 +1,143 @@
-"""Shards of the mesh path on one device (PyTorch/CUDA port of
-nextdenovo_tpu/parallel/mesh.py).
+"""Shards of the mesh path over one or several devices (PyTorch/CUDA port
+of nextdenovo_tpu/parallel/mesh.py).
 
 The JAX package runs `use_mesh = n` as SPMD programs over an n-device mesh:
 read rows are data-parallel across devices, the minimizer index is sharded
 by hash range, and records move between devices with all_to_all.  The port
-runs the same n shards on ONE device.  A shard is a block of rows; every
-block lives on the mesh's device, and each collective becomes its
-one-device equivalent:
+spreads the same n shards over k <= n devices, the mesh's "cards": shard s
+lives on devices[s * k // n], contiguous blocks of shards, the layout that
+NamedSharding(P(AXIS)) gives.  Each card's shards run on a host thread of
+their own (`Mesh.for_each_card`), so the cards work at once as the JAX
+package's SPMD programs do, and the collectives are the joins between
+those phases:
 
-  * all_to_all over a stack of per-source buckets (n_src, n_dst, ...) is a
-    swap of its first two axes (`all_to_all`);
-  * psum is a sum over shards (`psum`).
+  * all_to_all hands destination d, for each source in order, the bucket
+    that source made for d, copied to d's card (`all_to_all`);
+  * psum is a sum over shards on the host (`psum`).
+
+A device may be named more than once (`[cpu, cpu]`, `[cuda:0, cuda:0]`):
+the shards then form groups, each on its own thread, on one device.
 
 Buckets hold compacted rows: `bucketize` hands destination d, for each
 source in order, the first `cap` selected rows (the rows the reference's
 `jnp.nonzero(size=cap)` keeps) and counts the rest as drops, so no array of
 the reference's padded caps is built.  Results equal the JAX package's,
-shard for shard.
+shard for shard, on any number of cards.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
+import contextlib
+import logging
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import span
 
 AXIS = "shard"
+
+log = logging.getLogger("nextdenovo_tpu_torch")
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """n_shards shards, all on one torch device."""
+    """n_shards shards over `devices`, k <= n_shards torch devices (repeats
+    allowed): shard s lives on devices[s * k // n_shards]."""
     n_shards: int
-    device: torch.device
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def device(self) -> torch.device:
+        """devices[0], for the work that the JAX package also runs on one
+        device, outside its shard_map programs: the minimizer index's build,
+        cns_align's extend_overlap_ends (dist_pipeline.mesh_cns_align) and
+        run_polish's own work (dist_polish.distributed_polish)."""
+        return self.devices[0]
+
+    def card_of(self, s: int) -> int:
+        """The index in `devices` of shard s's card."""
+        return s * len(self.devices) // self.n_shards
+
+    def device_of(self, s: int) -> torch.device:
+        return self.devices[self.card_of(s)]
+
+    def shards_of(self, card: int) -> range:
+        """The shards of devices[card]: s with s * k // n == card."""
+        k, n = len(self.devices), self.n_shards
+        return range(-(-card * n // k), -(-(card + 1) * n // k))
+
+    def for_each_card(self, name: str, fn: Callable) -> list:
+        """fn(device, shards) for every card, each card on a host thread of
+        its own inside torch.cuda.device(card) (one card: inline, no
+        thread); fn returns one result per shard of `shards`.  Returns the
+        results of all shards in shard order, whatever order the threads
+        end in.  Once every thread has ended, the first card's exception,
+        if any, is raised here.  Spans: `name` around the whole, and
+        `name/card` around each card's part."""
+        k = len(self.devices)
+
+        def run(card):
+            dev, shards = self.devices[card], self.shards_of(card)
+            with span(name + "/card", card=f"{card}:{dev}",
+                      shards=len(shards)), _on(dev):
+                out = list(fn(dev, shards))
+            if len(out) != len(shards):
+                raise RuntimeError(f"{name}: card {card} returned "
+                                   f"{len(out)} results for {len(shards)} "
+                                   f"shards")
+            return out
+
+        with span(name, shards=self.n_shards, cards=k):
+            if k == 1:
+                return run(0)
+            with cf.ThreadPoolExecutor(k, thread_name_prefix="mesh-card") \
+                    as ex:
+                futs = [ex.submit(run, card) for card in range(k)]
+                cf.wait(futs)
+            bad = [(c, f.exception()) for c, f in enumerate(futs)
+                   if f.exception() is not None]
+            for c, e in bad[1:]:
+                log.error("%s: card %d failed too: %r", name, c, e)
+            if bad:
+                raise bad[0][1]
+            return [r for f in futs for r in f.result()]
 
 
-def make_mesh(n_devices: int, device=None) -> Mesh:
-    """A mesh of n_devices shards on `device` (None = the GPU)."""
-    if int(n_devices) < 1:
+def _on(dev: torch.device):
+    """The card's context: a CUDA thread's allocations and launches go to
+    its current device."""
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def make_mesh(n_devices: int, device=None, devices=None) -> Mesh:
+    """A mesh of n_devices shards.  devices: the cards, taken as given
+    (repeats make groups on one device).  Else an explicit `device` ("cpu",
+    "cuda:1") holds every shard.  Else (device=None) the GPU: the visible
+    cards cuda:0 .. cuda:min(n, device_count()) - 1; raises without CUDA."""
+    n = int(n_devices)
+    if n < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n_devices}")
-    return Mesh(int(n_devices), resolve_device(device))
+    if devices is not None:
+        devs = tuple(resolve_device(d) for d in devices)
+        if not 1 <= len(devs) <= n:
+            raise ValueError(f"a mesh of {n} shards takes 1 to {n} devices, "
+                             f"got {len(devs)}")
+    elif device is not None:
+        devs = (resolve_device(device),)
+    else:
+        resolve_device(None)
+        devs = tuple(torch.device("cuda", i)
+                     for i in range(min(n, torch.cuda.device_count())))
+    mesh = Mesh(n, devs)
+    blocks = [mesh.shards_of(c) for c in range(len(devs))]
+    log.info("mesh: %d shards on %d card(s): %s", n, len(devs), "; ".join(
+        f"shards {r.start}-{r.stop - 1} on {d}" for r, d in zip(blocks, devs)))
+    return mesh
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -54,21 +149,37 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def shard_rows(mesh: Mesh, arr) -> torch.Tensor:
-    """Move to the mesh's device and view the leading axis as
-    (n_shards, rows): shard s owns rows [s * rows, (s + 1) * rows)."""
-    t = _tensor(arr).to(mesh.device)
-    return t.reshape(mesh.n_shards, -1, *t.shape[1:])
+def shard_rows(mesh: Mesh, arr, dtype=None) -> List[torch.Tensor]:
+    """The leading axis as (n_shards, rows): entry s is shard s's block,
+    rows [s * rows, (s + 1) * rows), on its card.  Each card is sent its
+    own shards' rows only, in one copy; `dtype` converts there."""
+    t = _tensor(arr)
+    t = t.reshape(mesh.n_shards, -1, *t.shape[1:])
+    out = []
+    for card, dev in enumerate(mesh.devices):
+        r = mesh.shards_of(card)
+        blk = t[r.start:r.stop].to(dev)
+        out.extend((blk if dtype is None else blk.to(dtype)).unbind(0))
+    return out
 
 
-def replicate(mesh: Mesh, arr) -> torch.Tensor:
-    """One copy that every shard reads."""
-    return _tensor(arr).to(mesh.device)
+def replicate(mesh: Mesh, arr) -> Dict[torch.device, torch.Tensor]:
+    """One copy on each card, keyed by its device."""
+    t = _tensor(arr)
+    return {dev: t.to(dev) for dev in dict.fromkeys(mesh.devices)}
 
 
-def all_to_all(buckets: Sequence[Sequence]) -> List[List]:
-    """buckets[src][dst] -> received[dst][src]: the one-device all_to_all."""
-    return [list(col) for col in zip(*buckets)]
+def all_to_all(mesh: Mesh, buckets: Sequence[Sequence]) -> List[List]:
+    """buckets[src][dst], a tuple of tensors on src's card ->
+    received[dst][src], each tensor copied to dst's card.  Tensor.to between
+    two cards queues the copy on the source's current stream after a
+    barrier with the destination's, and makes the destination's stream wait
+    for it; the caching allocator ties the bucket's memory to that same
+    source stream, so the source may free a bucket while its copy is in
+    flight, and no host sync is needed."""
+    n = mesh.n_shards
+    return [[tuple(f.to(mesh.device_of(d)) for f in buckets[s][d])
+             for s in range(n)] for d in range(n)]
 
 
 def psum(values) -> int:

@@ -37,7 +37,7 @@ class Config:
     rewrite: bool = True
     rerun: int = 3             # bounded stage rerun (nextDenovo:652-661)
     # use_mesh = N > 1 (one host): run the heavy stages as the mesh path,
-    # N shards on the one device (parallel/dist_pipeline.py) — the
+    # N shards over the visible cards (parallel/dist_pipeline.py) — the
     # collective form of the reference's job-matrix parallelism
     # (nextDenovo:426-467).  Its stage files equal the JAX package's
     # use_mesh = N run (tests/test_torch_pipeline_mesh.py).

@@ -18,8 +18,8 @@ skips 01-03):
 Multi-host runs (hosts=parallel.launcher.HostContext; `python -m
 nextdenovo_tpu_torch launch`) shard stages 01, 03, 04 and 06 round-robin by
 host and run 00, 02 and 05 on host 0.  use_mesh = N > 1 on one host runs
-stages 01, 02, 03, 04 and 06 as the reference's mesh path, N shards on the
-one device (parallel/dist_pipeline.py).
+stages 01, 02, 03, 04 and 06 as the reference's mesh path, N shards over
+the visible cards, one host thread a card (parallel/dist_pipeline.py).
 
 Usage: python -m nextdenovo_tpu_torch run.cfg [--device cpu]
 """
@@ -118,9 +118,14 @@ class Stage:
         return os.path.join(self.dir, f)
 
 
-def run_pipeline(cfg: Config, device=None, hosts=None):
+def run_pipeline(cfg: Config, device=None, hosts=None, mesh_devices=None):
     """Run the configured task.  device=None means the GPU and raises when
     there is none; "cpu" runs the kernels' plain PyTorch versions.
+
+    The mesh path (use_mesh = N > 1) spreads its N shards over
+    mesh_devices when given (parallel.mesh.make_mesh; repeats make groups
+    on one device), else over the one explicit `device`, else over the
+    visible cards, up to N (CUDA_VISIBLE_DEVICES restricts them).
 
     hosts: optional parallel.launcher.HostContext — N identical host
     processes share the workdir; raw_align, seed_cns, the cns_align
@@ -134,13 +139,14 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
     check_ported(cfg, hs.n_hosts)
     dev = resolve_device(device)
     # use_mesh = N: the heavy stages run as the reference's mesh path, N
-    # shards on this device (parallel/dist_pipeline.py)
+    # shards over the mesh's cards (parallel/dist_pipeline.py)
     mesh, n_mesh = None, mesh_shards(cfg, hs.n_hosts)
     if n_mesh:
         from ..parallel.mesh import make_mesh
-        mesh = make_mesh(n_mesh, dev)
-        log.info("use_mesh=%d: mesh stages, %d shards on %s", n_mesh, n_mesh,
-                 dev)
+        mesh = make_mesh(n_mesh, device, devices=mesh_devices)
+        log.info("use_mesh=%d: mesh stages, %d shards on %d card(s) (%s), "
+                 "one host thread a card", n_mesh, n_mesh,
+                 len(mesh.devices), ", ".join(map(str, mesh.devices)))
     # rewrite=no: keep any previous run safe by moving the workdir to
     # .backup.vN before starting fresh (nextDenovo:577-585).  rewrite=yes
     # (default) reuses the workdir in place, which is also how resume works.
@@ -204,7 +210,7 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
                                     rids, mesh)
 
     if cfg.task == "correct":
-        _dump_trace(cfg, hs)
+        _dump_trace(cfg, hs, mesh)
         return dict(cns=cns_store)
 
     # ---- cns_align ------------------------------------------------------
@@ -376,7 +382,7 @@ def run_pipeline(cfg: Config, device=None, hosts=None):
             st.wait(hs)
     seqs = [s for _, s in read_fastx(st.path("nd.asm.fasta"))]
     stats = stat_n50(np.array([len(s) for s in seqs])) if seqs else {}
-    _dump_trace(cfg, hs)
+    _dump_trace(cfg, hs, mesh)
     log.info("assembly: %d contigs, N50=%s, total=%s (%.1fs)",
              len(seqs), stats.get("N50", (0,))[0] if stats else 0,
              stats.get("total", 0), time.time() - t_start)
@@ -607,10 +613,31 @@ def _cns_align_multi(cfg: Config, dev, hs, st: Stage,
     st.mark()
 
 
-def _dump_trace(cfg, hs):
+def _mesh_cards(mesh):
+    """Each CUDA card of the mesh: its peak device memory since the
+    process's last reset and the kernels it launched, logged and recorded
+    as the span `mesh/cards`."""
+    import torch
+    cards = {}
+    for dev in dict.fromkeys(mesh.devices):
+        if dev.type == "cuda":
+            i = torch.cuda.current_device() if dev.index is None \
+                else dev.index
+            cards[str(i)] = dict(
+                name=torch.cuda.get_device_name(i),
+                peak_mib=torch.cuda.max_memory_allocated(i) / 2**20,
+                launches=dict(_build.CARD_LAUNCHES.get(i, {})))
+    if cards:
+        log.info("mesh cards: %s", json.dumps(cards))
+        get_tracer().add("mesh/cards", 0.0, cards=cards)
+
+
+def _dump_trace(cfg, hs, mesh=None):
     """Span dump: <workdir>/trace.jsonl (trace.h<k>.jsonl per host of a
-    multi-host run: each host holds its own tracer) plus the summary table
-    in the log."""
+    multi-host run: each host holds its own tracer), after a mesh run's
+    `mesh/cards` span, plus the summary table in the log."""
+    if mesh is not None:
+        _mesh_cards(mesh)
     tracer = get_tracer()
     if tracer.enabled:
         name = (f"trace.h{hs.host_id}.jsonl" if hs.n_hosts > 1

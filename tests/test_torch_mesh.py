@@ -1,10 +1,14 @@
 """The mesh path's modules (nextdenovo_tpu_torch/parallel/: mesh,
 dist_overlap, dist_sort, dist_correct, dist_polish), n shards on the CPU,
 against the JAX package's mesh functions on the virtual 8-device CPU mesh
-(tests/conftest.py), on the same numpy inputs, for n in {1, 2, 8}.
-Tolerance: exact equality."""
+(tests/conftest.py), on the same numpy inputs, for n in {1, 2, 8}; and the
+n = 8 shards spread over k in {2, 4} device groups (`devices=[cpu] * k`,
+one host thread a group) against the same JAX outputs, computed once
+(distributed_correct and distributed_polish over groups:
+tests/test_torch_mesh_groups.py).  Tolerance: exact equality."""
 import numpy as np
 import pytest
+import torch
 import jax.numpy as jnp
 
 from nextdenovo_tpu.io.seqstore import SeqStore as JStore
@@ -31,10 +35,20 @@ from nextdenovo_tpu_torch.parallel import mesh as tm
 from torch_port_util import assert_same_results
 
 SHARDS = (1, 2, 8)
+GROUPS = (2, 4)
 FIELDS = ("qname", "tname", "rev", "qs", "qe", "ts", "te", "match")
 
 
 _JMESH = {}
+_JOUT = {}
+
+
+def _jcached(key, fn):
+    """One JAX output per key for the whole module: the tests of the port's
+    one-group and grouped meshes share it."""
+    if key not in _JOUT:
+        _JOUT[key] = fn()
+    return _JOUT[key]
 
 
 def _jmesh(n):
@@ -44,8 +58,12 @@ def _jmesh(n):
     return _JMESH[n]
 
 
-def _tmesh(n):
-    return tm.make_mesh(n, "cpu")
+def _tmesh(n, groups=1):
+    """n shards on the CPU, in `groups` device groups (one: make_mesh's
+    explicit device)."""
+    if groups == 1:
+        return tm.make_mesh(n, "cpu")
+    return tm.make_mesh(n, devices=[torch.device("cpu")] * groups)
 
 
 def _stores(reads):
@@ -99,6 +117,25 @@ def test_partition_index(index_pair, n):
         assert np.array_equal(a[:, :h], b[:, :h])
         assert (a[:, h:] == p).all() and (b[:, h:] == p).all()
     assert (ref[1] >= 0).sum() > 1000
+
+
+@pytest.mark.parametrize("k", GROUPS)
+def test_partition_index_groups(index_pair, k):
+    """The 8-shard partition sent to k groups: each shard's block of every
+    index array, on its group's device, is the JAX package's row block of
+    that shard."""
+    jidx, tidx = index_pair
+    same = tidx._replace(h=torch.from_numpy(np.asarray(jidx.h, np.int64)),
+                         rid=torch.from_numpy(np.asarray(jidx.rid)),
+                         pos=torch.from_numpy(np.asarray(jidx.pos)))
+    mesh = _tmesh(8, k)
+    for a, b in zip(jm.partition_index(jidx, 8), tm.partition_index(same, 8)):
+        blocks = tm.shard_rows(mesh, b)
+        assert len(blocks) == 8
+        for s, blk in enumerate(blocks):
+            assert blk.device == mesh.device_of(s)
+            assert np.array_equal(blk.numpy(),
+                                  a.reshape(8, -1)[s].astype(blk.numpy().dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +211,14 @@ def test_overlap_step(step_workload, n, variant):
     """Records per shard, n_ovl and n_over: with the pair-once gate
     (qmask), and with queries in a joint id space after 3 other ids (qid0 =
     3, no gate)."""
+    jout, tout = _overlap_step_pair(step_workload, n, variant, 1)
+    assert _assert_same_step(jout, tout, n) > 0
+
+
+def _overlap_step_pair(step_workload, n, variant, groups):
+    """(the JAX package's output, cached; the port's over `groups` device
+    groups) of one overlap step: with the pair-once gate (qmask), or with
+    queries in a joint id space after 3 other ids (qid0 = 3, no gate)."""
     codes, lens, mins, n_reads = step_workload
     qid0 = 3 if variant == "qid0" else 0
     qmask = np.ones(n_reads, np.int8) if variant == "qmask" else None
@@ -181,13 +226,26 @@ def test_overlap_step(step_workload, n, variant):
         _hash_blocks(*mins, n, 16384 // n)
     kw = dict(k=15, w=5, cap_mini=4096, max_occ=8, diag_shift=8, cap_out=128,
               qid0=qid0)
-    jmesh = _jmesh(n)
-    jq = None if qmask is None else jm.replicate(jmesh, jnp.asarray(qmask))
-    jout = jdo.distributed_overlap_step(
-        *[jm.shard_rows(jmesh, jnp.asarray(a)) for a in args], jq,
-        mesh=jmesh, n_shards=n, **kw)
-    tout = tdo.distributed_overlap_step(*args, qmask, mesh=_tmesh(n), **kw)
-    assert _assert_same_step(jout, tout, n) > 0
+
+    def jax_step():
+        jmesh = _jmesh(n)
+        jq = None if qmask is None else jm.replicate(jmesh, jnp.asarray(qmask))
+        return jdo.distributed_overlap_step(
+            *[jm.shard_rows(jmesh, jnp.asarray(a)) for a in args], jq,
+            mesh=jmesh, n_shards=n, **kw)
+
+    return (_jcached(("step", n, variant), jax_step),
+            tdo.distributed_overlap_step(*args, qmask,
+                                         mesh=_tmesh(n, groups), **kw))
+
+
+@pytest.mark.parametrize("k,variant", [(k, v) for k in GROUPS
+                                       for v in ("qmask", "qid0")])
+def test_overlap_step_groups(step_workload, k, variant):
+    """8 shards over k groups: every shard's records, n_ovl and n_over are
+    the JAX package's."""
+    jout, tout = _overlap_step_pair(step_workload, 8, variant, k)
+    assert _assert_same_step(jout, tout, 8) > 0
 
 
 @pytest.mark.parametrize("n", (1, 8))
@@ -293,7 +351,8 @@ def test_sort_filter(sort_workload, n):
     on the seven keys keep their order of arrival, as in the JAX package;
     with n > 1 that order is not the single-device path's."""
     raw, is_seed, lens, n_tied = sort_workload
-    ref = jds.distributed_sort_filter(raw, is_seed, lens, _jmesh(n), n)
+    ref = _jcached(("sort", n), lambda: jds.distributed_sort_filter(
+        raw, is_seed, lens, _jmesh(n), n))
     got = tds.distributed_sort_filter(raw, is_seed, lens, _tmesh(n))
     assert list(ref.blacklist.items()) == list(got.blacklist.items())
     assert len(ref.blacklist) > 0 and len(got.block) > 100 and n_tied == 10
@@ -304,6 +363,19 @@ def test_sort_filter(sort_workload, n):
                                      "ts", "rev")], 1)
     _, cnt = np.unique(key, axis=0, return_counts=True)
     assert (cnt > 1).any()
+
+
+@pytest.mark.parametrize("k", GROUPS)
+def test_sort_filter_groups(sort_workload, k):
+    """8 shards over k groups: the JAX package's SortResult, the blacklist
+    in shard order."""
+    raw, is_seed, lens, _ = sort_workload
+    ref = _jcached(("sort", 8), lambda: jds.distributed_sort_filter(
+        raw, is_seed, lens, _jmesh(8), 8))
+    got = tds.distributed_sort_filter(raw, is_seed, lens, _tmesh(8, k))
+    assert list(ref.blacklist.items()) == list(got.blacklist.items())
+    assert len(got.block) > 100
+    _same_blocks(ref.block, got.block)
 
 
 def test_sort_overflow_raises():
@@ -363,9 +435,30 @@ def test_band_align(band_pairs, band_port, n):
     R = 2 retry."""
     qs, ts = band_pairs
     got, exits = band_port
-    assert_same_results(jdc.distributed_band_align(qs, ts, _jmesh(n), n), got)
+    assert_same_results(_jcached(("band", n), lambda: jdc.distributed_band_align(
+        qs, ts, _jmesh(n), n)), got)
     assert not any(r["ok"] for r in exits)
     assert all(r["ok"] for r in got[50:])
+
+
+@pytest.mark.parametrize("k", GROUPS)
+def test_band_align_groups(band_pairs, k):
+    """The pairs of at most 750 bases (four, and the six band-exit pairs)
+    dealt round-robin to 8 shards over k groups, each group one band_align
+    call: in input order, the JAX package's n = 8 results of the same pairs
+    (its results are per pair: the whole set's, taken at these pairs).
+    Short pairs keep it cheap: the plain aligner costs a step a column in
+    every group's call, and the groups' threads contend for the
+    interpreter."""
+    qs, ts = band_pairs
+    ref = _jcached(("band", 8), lambda: jdc.distributed_band_align(
+        qs, ts, _jmesh(8), 8))
+    pick = [i for i in range(len(qs)) if max(len(qs[i]), len(ts[i])) <= 750]
+    got = tdc.distributed_band_align([qs[i] for i in pick],
+                                     [ts[i] for i in pick], _tmesh(8, k))
+    assert len(pick) == 10 and set(range(50, 56)) <= set(pick)
+    assert_same_results([ref[i] for i in pick], got)
+    assert all(r["ok"] for r in got[-6:])
 
 
 # ---------------------------------------------------------------------------
@@ -466,6 +559,19 @@ def test_map_polish_reads(polish_workload):
                                            _jmesh(2), 2)
     got = tdp.distributed_map_polish_reads(draft, TStore.from_codes(reads),
                                            _tmesh(2))
+    assert len(got) > 10
+    _same_blocks(ref, got)
+
+
+@pytest.mark.parametrize("k", GROUPS)
+def test_map_polish_reads_groups(polish_workload, k):
+    """ctg_align over 8 shards in k groups: the JAX package's n = 8
+    records."""
+    reads, draft = polish_workload
+    ref = _jcached(("map", 8), lambda: jdp.distributed_map_polish_reads(
+        draft, JStore.from_codes(reads), _jmesh(8), 8))
+    got = tdp.distributed_map_polish_reads(draft, TStore.from_codes(reads),
+                                           _tmesh(8, k))
     assert len(got) > 10
     _same_blocks(ref, got)
 
