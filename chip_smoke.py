@@ -57,6 +57,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              that the vote would not make (engine_chain_sets);
              vote_corridor_kernel and engine_anchor_kernel with no stack
              frame in `nvcc -Xptxas -v`
+  sketch     the minimizer sketch's three kernels (sketch_select,
+             sketch_emit, hpc_compress) against their plain versions on the
+             card, exact in every field, n and n_all: edge rows (length 0,
+             shorter than w + k - 1, N codes, homopolymer runs, a tandem
+             repeat, (AT)* palindromes, lengths past a tile) at k in {1, 15,
+             17, 31, 32, 51, 127} x w in {1, 5, 17, 51}; column slices of a
+             wider buffer with a truncating cap, own gates, and hpc with
+             int64 lengths; one 16-row batch of the main path's stage 01;
+             the HiFi batch's 32 longest chunk rows at k = w = 51, raw and
+             hpc; a mesh-sized launch of 128 x 20000 positions through a
+             32768-column buffer; at most one host sync a sketch call
   overlaps   find_overlaps on fixed batches of reads gives identical
              records on the card (the engine kernels launched) and on the
              CPU: ONT reads at k = 17, w = 10; HiFi reads (one longer than
@@ -76,7 +87,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   main_path  task = all (stages 00-06) through the package's CLI entry on a
              simulated genome at 30x, with the launch counters set to 0
              just before and read just after; checks the markers, the
-             engine kernels launched in stages 01, 04 and 06, the
+             engine and sketch kernels launched in stages 01, 04 and 06
+             (stage 01's index build split into its sketch and the rest),
+             the
              share of corrected seeds, the identity of corrected reads,
              and the contigs against the simulated genome
   multihost_path
@@ -93,6 +106,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              peak memory reset just before; checks the markers, that
              raw.ovl and sorted.ovl equal main_path's and bl.json does once
              parsed, a launch of myers_fwd in each of stages 03, 04 and 06,
+             of sketch_select and sketch_emit in stage 01,
              and the main path's limits on the corrected reads and contigs;
              prints the stage walls, the launches by stage, the peak memory
              and how many corrected reads are byte-equal to main_path's
@@ -122,7 +136,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              read kept (at least 0.5), the longest contig (at least 0.3 x
              the genome), and the contigs' 31-mer identity and total; then
              build_index of the same reads at k = w = 51, raw and hpc, on
-             the card: wall (ended by a synchronise), entries, peak memory
+             the card: wall (ended by a synchronise), entries, peak memory,
+             the hpc build's launches (hpc_compress, sketch_select and
+             sketch_emit each at least once)
   timing     each kernel at its path's shape against its plain version
              (exact equality again), with the least time the card could
              take for the same work; the Myers kernels also at 640, 1280,
@@ -145,16 +161,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              batch's group sizes; one _match_block call split by CUDA events
              into its steps; one whole _match_block call with the kernels
              against the same call with the plain versions on the card, the
-             host syncs of one call (counted) and a host sync's cost
+             host syncs of one call (counted) and a host sync's cost; the
+             sketch kernels at the main path's batch and the HiFi batch,
+             each alone (launches only) and as a whole wrapper call, beside
+             the plain versions' select, emit and whole call on the card
+             and the plain call's device kernels (torch.profiler), and
+             hpc_compress on the HiFi batch's hpc rows
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
 
 Without a CUDA device it exits non-zero and prints no result.  The last
 line of stdout is {"ok": true, "device": {...}}; the line before the card
-line holds {"kernels": [...]}: seven kernels' launches are read from the
+line holds {"kernels": [...]}: the kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
-pair's from the band_align(R=1) run; `launches_hifi` holds each kernel's
+pair's from the band_align(R=1) run, hpc_compress's from the HiFi reads'
+hpc index build; `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
 process of the two-host run, `launches_mesh` its launches on the
 use_mesh = 8 run, `launches_mesh_cards` on the use_mesh = 8 run over the
@@ -212,12 +234,20 @@ KERNEL_INFO = {
                           replaces="nextdenovo_tpu/overlap/engine.py:372"),
     "chain_emit": dict(source="nextdenovo_tpu_torch/csrc/engine.cu",
                        replaces="nextdenovo_tpu/overlap/engine.py:372"),
+    # sketch (:141) and sketch_wide (:302) share the two
+    "sketch_select": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
+                          replaces="nextdenovo_tpu/ops/sketch.py:141"),
+    "sketch_emit": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
+                        replaces="nextdenovo_tpu/ops/sketch.py:141"),
+    "hpc_compress": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
+                         replaces="nextdenovo_tpu/ops/sketch.py:281"),
 }
 # the path a kernel's launches are read from, where it is not the task = all
 # run
 FAST_PATH, EXT_PATH = "band_align(R=1)", "input_type = corrected, task = assemble"
+HPC_PATH = "build_index(hpc=True) of the HiFi path's reads"
 KERNEL_PATH = {"wave_fast_fwd": FAST_PATH, "wave_fast_tb": FAST_PATH,
-               "ext_fwd": EXT_PATH}
+               "ext_fwd": EXT_PATH, "hpc_compress": HPC_PATH}
 FAST_PATH_KERNELS = ("wave_fast_fwd", "wave_fast_tb")
 
 
@@ -1084,7 +1114,8 @@ def main_batch(dev):
     args = (m.rid, m.pos, m.hash, m.strand, to([r[0] for r in rows]),
             to([r[1] for r in rows]), to(qmask), idx.h, idx.rid, idx.pos)
     return dict(args=args, idx=idx, rows=len(rows),
-                read_lens=lens[order[mid : mid + 16]])
+                read_lens=lens[order[mid : mid + 16]], store=store,
+                chunk_rows=rows)
 
 
 def _engine_bounds(name, ins, outs, top_k):
@@ -1843,7 +1874,7 @@ def _same_minimizers(a, b, what):
         raise RuntimeError(f"sketch of {what}: {a.n} ({a.n_all}) minimizers "
                            f"on the card, {b.n} ({b.n_all}) on the CPU")
     for f in ("rid", "pos", "hash", "strand"):
-        x, y = getattr(a, f).cpu(), getattr(b, f)
+        x, y = getattr(a, f).cpu(), getattr(b, f).cpu()
         if x.shape != y.shape or not bool((x == y).all()):
             raise RuntimeError(f"sketch of {what}: field {f} differs between "
                                "the card and the CPU")
@@ -1965,6 +1996,365 @@ def hpc_overlaps(dev, store):
                   allow_empty=True)
     log(f"[overlaps] HiFi hpc card == cpu: one batch's minimizers, the "
         f"index's arrays and {len(out[str(dev)])} records identical")
+
+
+# --------------------------------------------------------------------------
+# the sketch kernels
+
+SKETCH_KERNELS = ("sketch_select", "sketch_emit")
+SKETCH_KS = (1, 15, 17, 31, 32, 51, 127)
+SKETCH_WS = (1, 5, 17, 51)
+
+
+def sketch_edge_batch(rng, k, w, B=8, L=2100, pad=0):
+    """Rows of the edge cases in a (B, L + pad) int8 buffer, as
+    tests/test_torch_sketch_kernel.py makes them (the columns past L and
+    past each row's length hold random codes, N included): a row of length
+    0, one a base shorter than w + k - 1, N codes, homopolymer runs, a
+    tandem repeat of period 3 (tied hashes), an (AT)* run (every even k-mer
+    a palindrome), random rows of length L and just past a tile."""
+    import numpy as np
+    from nextdenovo_tpu_torch.ops.sketch import SKETCH_TILE
+    buf = rng.integers(0, 5, (B, L + pad)).astype(np.int8)
+    lens = np.minimum([0, max(w + k - 2, 0), L, L, 1500, 1200, L,
+                       SKETCH_TILE + 3], L)[:B].astype(np.int32)
+    buf[2, :L:7] = 4
+    buf[3, :L] = np.repeat(rng.integers(0, 4, L),
+                           rng.integers(1, 40, L))[:L]
+    buf[3, L // 4 : L // 2] = 1
+    n4, n5 = lens[4], lens[5]
+    buf[4, :n4] = np.tile([0, 1, 2], n4 // 3 + 1)[:n4]
+    buf[5, :n5] = np.tile([0, 3], n5 // 2 + 1)[:n5]
+    buf[5, 300:310] = 2
+    return buf, lens
+
+
+def _sketch_record(res, tag, got, want):
+    """Hold a sketch on the card (the kernels) against the plain version on
+    the same tensors: every field, n and n_all."""
+    if (got.n, got.n_all) != (want.n, want.n_all):
+        raise RuntimeError(f"sketch kernels on '{tag}': {got.n} ({got.n_all})"
+                           f" minimizers, the plain version {want.n} "
+                           f"({want.n_all})")
+    _record(res, tag, "sketch_emit",
+            [getattr(got, f) for f in ("rid", "pos", "hash", "strand")],
+            [getattr(want, f) for f in ("rid", "pos", "hash", "strand")])
+
+
+def _select_record(res, tag, codes, lens, k, w, own=(None, None),
+                   hpc=False):
+    """sketch_select's own outputs against select_plain's (h, strand, sel)
+    on the same CUDA tensors, exactly: the selected bit of every position,
+    the strand bit and the hash at each selected position, and each tile's
+    count.  Under hpc both take hpc_compress_plain's compressed rows."""
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import sketch as S
+    pos_map = None
+    if hpc:
+        codes, pos_map, lens = S.hpc_compress_plain(codes, lens)
+        pos_map = pos_map.contiguous()
+    sb = S._buffers(codes, lens, k, w, 0, *own, pos_map)
+    if sb.hsh.numel():
+        with torch.cuda.device(codes.device):
+            S._select_launch(_build.kernels(), sb, k, w)
+    h, strand, sel = S.select_plain(codes, lens, k, w, *own, pos_map,
+                                    wide=k > 31 or hpc)
+    B, L = sel.shape
+    T = S.SKETCH_TILE
+    tiles = torch.nn.functional.pad(sel.to(torch.int32),
+                                    (0, -(-L // T) * T - L))
+    ksel = (sb.flags & 2) != 0
+    _record(res, tag, "sketch_select",
+            [ksel, (sb.flags & 1)[sel], sb.hsh.to(torch.int64)[sel]
+             & 0xFFFFFFFF, sb.counts],
+            [sel, strand[sel], h[sel], tiles.view(B, -1, T).sum(2).view(-1)])
+
+
+def compare_sketch(tag, codes, lens, k, w, cap, own=(None, None),
+                   hpc=False):
+    """sketch_wide (and sketch, at k <= 31 and no hpc) with the kernels
+    against their plain versions on the same CUDA tensors, exactly; with
+    hpc also hpc_compress against hpc_compress_plain.  Returns the kernels'
+    results {name: exact, max_abs_err} and the sketch."""
+    from nextdenovo_tpu_torch.ops import sketch as S
+    res = {}
+    kw = dict(own_lo=own[0], own_hi=own[1])
+    got = S.sketch_wide(codes, lens, k, w, cap, hpc=hpc, **kw)
+    _sketch_record(res, tag, got, S.sketch_wide_plain(codes, lens, k, w, cap,
+                                                      hpc=hpc, **kw))
+    _select_record(res, tag, codes, lens, k, w, own, hpc)
+    if k <= 31 and not hpc:
+        _sketch_record(res, tag, S.sketch(codes, lens, k, w, cap, **kw),
+                       S.sketch_plain(codes, lens, k, w, cap, **kw))
+    if hpc:
+        _record(res, tag, "hpc_compress", S.hpc_compress(codes, lens),
+                S.hpc_compress_plain(codes, lens))
+    return res, got
+
+
+def sketch_sets(dev, rng, ks=SKETCH_KS, ws=SKETCH_WS,
+                slices=((15, 5), (17, 17), (51, 51), (32, 1))):
+    """The kernels on the edge rows at every (k, w) of ks x ws; at each
+    (k, w) of slices a column-sliced view of a wider buffer, with a
+    truncating cap, with own gates, and hpc with own gates and int64
+    lengths.  Returns {name: result}."""
+    import numpy as np
+    import torch
+    res = {}
+    to = lambda a: torch.from_numpy(a).to(dev)
+    for k in ks:
+        for w in ws:
+            buf, lens = sketch_edge_batch(rng, k, w)
+            B, L = buf.shape
+            r, got = compare_sketch(f"edge rows k={k} w={w}", to(buf),
+                                    to(lens), k, w, B * L)
+            res.update(r)
+            if got.n_all == 0:
+                raise RuntimeError(f"edge rows k={k} w={w}: no minimizer")
+    for k, w in slices:
+        buf, lens = sketch_edge_batch(rng, k, w, pad=333)
+        B, L = buf.shape[0], buf.shape[1] - 333
+        view = to(buf)[:, :L]
+        lo = rng.integers(-5, 900, B).astype(np.int32)
+        hi = (lo + rng.integers(0, 1500, B)).astype(np.int32)
+        r, full = compare_sketch(f"column slice k={k} w={w}", view,
+                                 to(lens), k, w, B * L)
+        cap = full.n_all // 2
+        r, got = compare_sketch(f"column slice, cap {cap}, k={k} w={w}",
+                                view, to(lens), k, w, cap)
+        if not got.n == cap < got.n_all:
+            raise RuntimeError(f"cap {cap} did not truncate: {got.n} of "
+                               f"{got.n_all}")
+        r, _ = compare_sketch(f"column slice, own gates, k={k} w={w}", view,
+                              to(lens), k, w, cap, own=(to(lo), to(hi)))
+        r, _ = compare_sketch(f"hpc, own gates, int64 lengths, k={k} w={w}",
+                              view, to(lens.astype(np.int64)), k, w, B * L,
+                              own=(to(lo), to(hi)), hpc=True)
+        res.update(r)
+    return res
+
+
+def mesh_sized_codes(dev, rng, B=128, L_buf=32768, top=20000):
+    """A mesh-sized sketch launch: B rows of a (B, L_buf) int8 buffer (a
+    power of two, as _pow2_rows makes it) sketched through the column slice
+    [:, :top], top > CHUNK_LP; lengths up to top.  Returns (view, lengths)
+    on dev."""
+    import numpy as np
+    import torch
+    buf = rng.integers(0, 4, (B, L_buf)).astype(np.int8)
+    lens = rng.integers(top // 2, top + 1, B).astype(np.int32)
+    lens[0] = top
+    return torch.from_numpy(buf).to(dev)[:, :top], \
+        torch.from_numpy(lens).to(dev)
+
+
+def hifi_sketch_rows(hpc=False, n=32):
+    """The last n chunk rows of the HiFi batch (hifi_batch) in build_index's
+    order at k = w = 51: the longest reads, the 20 kb read's chunks among
+    them."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap.engine import _chunk_rows
+    store = hifi_batch()
+    lens = np.asarray(store.length, np.int64)
+    rows = _chunk_rows(np.argsort(lens, kind="stable"), lens, 51, 51,
+                       hpc=hpc)
+    return store, rows[-n:]
+
+
+def _batch_tensors(dev, store, rows):
+    import torch
+    from nextdenovo_tpu_torch.overlap.engine import sketch_inputs
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in sketch_inputs(store, rows))
+
+
+def phase_sketch(dev, mb):
+    """The sketch kernels against their plain versions on the card, exact
+    in every field, n and n_all: sketch_sets; one 16-row batch of the main
+    path's stage 01 (mb, k = 15, w = 5, with its own gates and cap); the
+    HiFi batch's 32 longest chunk rows at k = w = 51, raw and hpc; a
+    mesh-sized launch of 128 rows through a 20000-column slice of a 32768-
+    column buffer; the host syncs of one sketch call (at most one).
+    Returns the main path's batch as tensors on dev."""
+    import numpy as np
+    from nextdenovo_tpu_torch.ops import sketch as S
+    from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
+    rng = np.random.default_rng(29)
+    t0 = time.time()
+    r = sketch_sets(dev, rng)
+    log(f"[sketch] edge rows at k in {SKETCH_KS}, w in {SKETCH_WS}, column "
+        f"slices, own gates, a truncating cap and hpc: " + ", ".join(
+            f"{k_} exact={v['exact']}" for k_, v in r.items())
+        + f" ({time.time() - t0:.1f}s)")
+    s1 = STAGE01
+    main = _batch_tensors(dev, mb["store"], mb["chunk_rows"])
+    codes, lens, lo, hi = main
+    cap = 2 * 16 * CHUNK_LP // s1["w"] + 1024
+    _, got = compare_sketch("the main path's batch", codes, lens, s1["k"],
+                            s1["w"], cap, own=(lo, hi))
+    _, n_sync, at = count_syncs(lambda: S.sketch(
+        codes, lens, s1["k"], s1["w"], cap, own_lo=lo, own_hi=hi))
+    log(f"[sketch] the main path's batch {tuple(codes.shape)}: {got.n} "
+        f"minimizers, kernels == plain; host syncs of one call {n_sync} "
+        f"{at}")
+    if n_sync > 1:
+        raise RuntimeError(f"a sketch call made {n_sync} host syncs: {at}")
+    for hpc in (False, True):
+        store, rows = hifi_sketch_rows(hpc)
+        c, l_, o1, o2 = _batch_tensors(dev, store, rows)
+        _, got = compare_sketch(f"the HiFi batch, hpc={hpc}", c, l_, 51, 51,
+                                2 * 32 * CHUNK_LP // 51 + 1024, own=(o1, o2),
+                                hpc=hpc)
+        log(f"[sketch] the HiFi batch {tuple(c.shape)} at k = w = 51, "
+            f"hpc={hpc}: {got.n} minimizers, kernels == plain")
+    view, ml = mesh_sized_codes(dev, rng)
+    B, top = view.shape
+    _, got = compare_sketch("a mesh-sized launch", view, ml, s1["k"],
+                            s1["w"], B * top)
+    log(f"[sketch] a mesh-sized launch {B} x {top} (> {CHUNK_LP} columns, "
+        f"pitch {view.stride(0)}): {got.n} minimizers, kernels == plain "
+        f"({time.time() - t0:.1f}s in all)")
+    return main
+
+
+def _sketch_bounds(name, B, L, n, nvalid, k=15, hpc=False, own=True):
+    """(bytes, int32 operations) the kernel's work needs: each input read
+    once, each output written once; nvalid positions lie inside their
+    rows' lengths, the rest is padding that needs no work.  sketch_select:
+    a code byte read a valid position, a flag byte written a position, 4 B
+    a selected hash, and per valid position the least work of a canonical
+    hash over the ceil(k / 16) lanes that carry bases (a leading empty
+    lane's hash is a constant): rolling fwd and rc k-mers (3 instructions
+    a lane each), the lane compare, mix32 a lane (9), then the window
+    minimum and the selection (~8).  sketch_emit: the flags, 4 B a hash
+    read and 32 B written a minimizer.  hpc_compress: a byte read a valid
+    position and 9 B written a position."""
+    lanes = -(-k // 16)
+    if name == "sketch_select":
+        byt = nvalid * (1 + (8 if hpc else 0)) + B * L \
+            + B * (4 + (8 if own else 0)) + n * 4
+        ops = nvalid * (16 * lanes + 8)
+    elif name == "sketch_emit":
+        byt = B * L + n * (4 + 32 + (8 if hpc else 0)) + 8
+        ops = B * L * 2
+    else:
+        byt = nvalid + B * L * 9 + B * 8
+        ops = nvalid * 4
+    return byt, ops
+
+
+def _valid_positions(lens, L):
+    """Positions inside their rows' lengths: the sum of min(len_b, L)."""
+    return int(lens.clamp(0, L).sum())
+
+
+def plain_launches(fn):
+    """Device kernels one call of fn launches, by torch.profiler (None
+    where the profiler saw no device activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def _sketch_shape_timing(dev, tag, codes, lens, lo, hi, k, w, cap,
+                         wide=False):
+    """One shape: sketch_select and sketch_emit alone (launches only, CUDA
+    events after a device sleep), the whole wrapper call (host sync
+    included), the plain versions' select and emit steps and whole call on
+    the card, the plain call's device kernels."""
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import sketch as S
+    lib = _build.kernels()
+    sb = S._buffers(codes, lens, k, w, cap, lo, hi)
+    sel_ms = _events_ms(lambda: S._select_launch(lib, sb, k, w))
+    emit_ms = _events_ms(lambda: S._emit_launch(lib, sb))
+    call = (lambda: S.sketch_wide(codes, lens, k, w, cap, own_lo=lo,
+                                  own_hi=hi)) if wide else \
+        (lambda: S.sketch(codes, lens, k, w, cap, own_lo=lo, own_hi=hi))
+    plain = (S.sketch_wide_plain if wide else S.sketch_plain)
+    pcall = lambda: plain(codes, lens, k, w, cap, own_lo=lo, own_hi=hi)
+    m, call_ms = timed(call, 5)
+    _, pcall_ms = timed(pcall, 3)
+    hsp, stp, selp = S.select_plain(codes, lens, k, w, lo, hi, wide=wide)
+    _, psel_ms = timed(lambda: S.select_plain(codes, lens, k, w, lo, hi,
+                                              wide=wide), 3)
+    _, pemit_ms = timed(lambda: S.emit_plain(hsp, stp, selp, cap), 3)
+    n_pl = plain_launches(pcall)
+    B, L = codes.shape
+    out = {}
+    _sketch_record(out, tag, m, pcall())
+    _select_record(out, tag, codes, lens, k, w, (lo, hi))
+    nvalid = _valid_positions(lens, L)
+    for name, ms, pms in (("sketch_select", sel_ms, psel_ms),
+                          ("sketch_emit", emit_ms, pemit_ms)):
+        out[name].update(ms=ms, plain_ms=pms, wrapper_ms=call_ms,
+                         plain_call_ms=pcall_ms, plain_call_launches=n_pl,
+                         shape=f"{B} x {L}, k={k}, w={w}, {m.n} minimizers",
+                         valid_positions=nvalid,
+                         **_bound(*_sketch_bounds(name, B, L, m.n, nvalid,
+                                                  k)))
+    log(f"[timing] sketch at {tag} ({out['sketch_select']['shape']}): "
+        f"sketch_select alone {sel_ms:.4f} ms (bound "
+        f"{out['sketch_select']['bound_ms']:.4f}, "
+        f"{out['sketch_select']['bound_by']}), sketch_emit alone "
+        f"{emit_ms:.4f} ms (bound {out['sketch_emit']['bound_ms']:.4f}, "
+        f"{out['sketch_emit']['bound_by']}); the wrapper's call "
+        f"{call_ms:.4f} ms; plain on the card: select {psel_ms:.3f} ms, emit "
+        f"{pemit_ms:.3f} ms, call {pcall_ms:.3f} ms in {n_pl} device kernels")
+    return out
+
+
+def sketch_timing(dev, main):
+    """The sketch kernels at their paths' shapes: the main path's 16-row
+    stage-01 batch (k = 15, w = 5; the kernels line's figures) and the HiFi
+    batch's 32 longest chunk rows at k = w = 51; hpc_compress alone on the
+    HiFi batch's hpc rows, against hpc_compress_plain.  Returns {name:
+    result}."""
+    from nextdenovo_tpu_torch.ops import sketch as S
+    from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
+    s1 = STAGE01
+    codes, lens, lo, hi = main
+    out = _sketch_shape_timing(dev, "the main path's batch", codes, lens, lo,
+                               hi, s1["k"], s1["w"],
+                               2 * 16 * CHUNK_LP // s1["w"] + 1024)
+    store, rows = hifi_sketch_rows()
+    c, l_, o1, o2 = _batch_tensors(dev, store, rows)
+    hifi = _sketch_shape_timing(dev, "the HiFi batch", c, l_, o1, o2, 51, 51,
+                                2 * 32 * CHUNK_LP // 51 + 1024, wide=True)
+    for name in SKETCH_KERNELS:
+        out[name].update({f"hifi_{k_}": hifi[name][k_]
+                          for k_ in ("ms", "plain_ms", "bound_ms",
+                                     "wrapper_ms", "plain_call_ms",
+                                     "plain_call_launches", "shape")})
+    store, rows = hifi_sketch_rows(hpc=True)
+    c, l_, _, _ = _batch_tensors(dev, store, rows)
+    B, L = c.shape
+    ms = _events_ms(lambda: S._hpc_launch(c, l_))
+    _, pms = timed(lambda: S.hpc_compress_plain(c, l_), 3)
+    res = {}
+    _record(res, "the HiFi batch's hpc rows", "hpc_compress",
+            S.hpc_compress(c, l_), S.hpc_compress_plain(c, l_))
+    out["hpc_compress"] = dict(
+        res["hpc_compress"], ms=ms, plain_ms=pms,
+        plain_call_launches=plain_launches(
+            lambda: S.hpc_compress_plain(c, l_)),
+        shape=f"{B} x {L} (the HiFi batch's hpc rows)",
+        **_bound(*_sketch_bounds("hpc_compress", B, L, 0,
+                                 _valid_positions(l_, L))))
+    log(f"[timing] hpc_compress at {out['hpc_compress']['shape']}: "
+        f"{ms:.4f} ms (bound {out['hpc_compress']['bound_ms']:.4f}, "
+        f"{out['hpc_compress']['bound_by']}); plain on the card {pms:.3f} ms "
+        f"in {out['hpc_compress']['plain_call_launches']} device kernels")
+    return out
 
 
 def phase_fast_path(dev):
@@ -2149,6 +2539,7 @@ def phase_main_path(dev, genome_size, workdir):
     for s_ in tracer.spans:
         by_name.setdefault(s_.name, []).append(s_)
     _engine_report("main_path", marks, by_name)
+    _stage01_split("main_path", marks, by_name)
     for name in ("cns_align", "ctg_graph", "ctg_align", "ctg_cns"):
         if name not in by_name:
             raise RuntimeError(f"span {name} was not recorded")
@@ -2245,15 +2636,16 @@ def _stage_report(tag, tracer, t0, wd):
 
 
 def _engine_report(tag, marks, by_name):
-    """The engine's kernels launched in each stage that runs the engine
-    (01, 04 and 06; find_overlaps' batches), and engine/match's wall in
-    each; fails where a kernel was launched no time."""
+    """The engine's and the sketch's kernels launched in each stage that
+    runs the engine (01, 04 and 06; build_index's and find_overlaps'
+    batches), and engine/match's wall in each; fails where a kernel was
+    launched no time."""
     prev = {"01.raw_align": "00.db", "04.cns_align": "03.seed_cns",
             "06.ctg_cns": "05.ctg_graph"}
     rows = []
     for st, before in prev.items():
         n = {k_: int(marks[st].attrs[k_]) - int(marks[before].attrs[k_])
-             for k_ in ENGINE_KERNELS}
+             for k_ in ENGINE_KERNELS + SKETCH_KERNELS}
         t_a, t_b = marks[before].t0, marks[st].t0
         em = [s_ for s_ in by_name.get("engine/match", [])
               if t_a <= s_.t0 < t_b]
@@ -2263,6 +2655,22 @@ def _engine_report(tag, marks, by_name):
             if v < 1:
                 raise RuntimeError(f"{tag}: stage {st} launched no {k_}")
     log(f"[{tag}] engine kernels by stage: " + "; ".join(rows))
+
+
+def _stage01_split(tag, marks, by_name):
+    """Stage 01's index build split into its sketch batches
+    (engine/index_sketch: the kernels and the read back of each batch's
+    count) and the rest (copies to the host, the host sort, the index's
+    upload), and engine/host_fill (the queries' sketch batches)."""
+    t01 = marks["01.raw_align"].t0
+    in01 = lambda n: [s_ for s_ in by_name.get(n, []) if s_.t0 < t01]
+    bi = sum(s_.wall for s_ in in01("raw_align/build_index"))
+    sk, hf = in01("engine/index_sketch"), in01("engine/host_fill")
+    sk_s = sum(s_.wall for s_ in sk)
+    log(f"[{tag}] stage 01: raw_align/build_index {bi:.3f}s, of which its "
+        f"sketch (engine/index_sketch) {sk_s:.3f}s over {len(sk)} batches "
+        f"and the rest {bi - sk_s:.3f}s; engine/host_fill (the queries' "
+        f"sketch) {sum(s_.wall for s_ in hf):.3f}s over {len(hf)} batches")
 
 
 def _check_identity(tag, dev, wd, cns, sim, genome, limit, window=None):
@@ -2395,6 +2803,7 @@ def phase_hifi_path(dev, genome_size, workdir):
     for s_ in tracer.spans:
         by_name.setdefault(s_.name, []).append(s_)
     _engine_report("hifi_path", marks, by_name)
+    _stage01_split("hifi_path", marks, by_name)
     bi = by_name["raw_align/build_index"][0]
     kw = (int(bi.attrs["k"]), int(bi.attrs["w"]))
     # spans of stage 01 only: the engine also runs in stages 04 and 06
@@ -2441,17 +2850,19 @@ def phase_hifi_path(dev, genome_size, workdir):
         raise RuntimeError(f"contig 31-mer identity {kid:.4f} not above 0.95")
     if not 0.5 * len(genome) < total < 1.6 * len(genome):
         raise RuntimeError(f"contig total {total} outside 0.5-1.6 x genome")
-    hpc_index_scale(dev, sim.reads)
-    return launches
+    return launches, hpc_index_scale(dev, sim.reads)
 
 
 def hpc_index_scale(dev, reads):
     """build_index of the HiFi path's whole read set at k = w = 51 on the
     card, raw and then homopolymer-compressed (hpc; no stage calls it):
     each build's wall ended by a synchronise, its entries and its peak
-    device memory above what was allocated before it."""
+    device memory above what was allocated before it.  Returns the launch
+    counts of the hpc build (counters at 0 just before); fails where it
+    launched no hpc_compress, sketch_select or sketch_emit."""
     import numpy as np
     import torch
+    from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.io.seqstore import SeqStore
     from nextdenovo_tpu_torch.overlap.engine import build_index
     store = SeqStore.from_codes(reads)
@@ -2461,11 +2872,13 @@ def hpc_index_scale(dev, reads):
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
         t0 = time.time()
         idx = build_index(store, rids, k=51, w=51, max_occ=64, hpc=hpc,
                           device=dev)
         torch.cuda.synchronize()
         wall = time.time() - t0
+        launches = dict(_build.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() - base
         n[hpc] = idx.n
         log(f"[hpc_index] {len(store)} reads, {int(store.total_bases)} bases,"
@@ -2476,6 +2889,11 @@ def hpc_index_scale(dev, reads):
     if not 0 < n[True] < n[False]:
         raise RuntimeError(f"the hpc index holds {n[True]} entries, the raw "
                            f"one {n[False]}")
+    log(f"[hpc_index] the hpc build's launches {json.dumps(launches)}")
+    for name in ("hpc_compress",) + SKETCH_KERNELS:
+        if launches[name] < 1:
+            raise RuntimeError(f"the hpc build launched no {name}")
+    return launches
 
 
 def _host_rows(wd, k):
@@ -2506,8 +2924,7 @@ def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
     and nd.asm.fasta are byte for byte the main path's.  Returns each
     host's launches over the run."""
     import signal
-    names = ("myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
-             "wave_fast_fwd", "wave_fast_tb") + ENGINE_KERNELS
+    names = tuple(KERNEL_INFO)
     cfg_p = os.path.join(workdir, "run_mh.cfg")
     with open(cfg_p, "w") as fh:
         fh.write("[General]\ntask = all\ninput_type = raw\n"
@@ -2571,13 +2988,13 @@ def phase_multihost_path(workdir, n_hosts=2, timeout_s=420):
             f"{json.dumps(in_stage)}")
         if in_stage["03.seed_cns"].get("myers_fwd", 0) < 1:
             raise RuntimeError(f"host {k} launched no myers_fwd in stage 03")
-        for n in ENGINE_KERNELS:
+        for n in ENGINE_KERNELS + SKETCH_KERNELS:
             if in_stage["01.raw_align"].get(n, 0) < 1:
                 raise RuntimeError(f"host {k} launched no {n} in stage 01")
         per_host.append({n: rows["06.ctg_cns"][n] for n in names})
         stage_rows.append(in_stage)
     for st in ("04.cns_align", "06.ctg_cns"):
-        for n in ENGINE_KERNELS:
+        for n in ENGINE_KERNELS + SKETCH_KERNELS:
             if sum(r[st].get(n, 0) for r in stage_rows) < 1:
                 raise RuntimeError(f"no host launched {n} in {st}")
     log(f"[multihost_path] launches per host: {json.dumps(per_host)}")
@@ -2677,6 +3094,10 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
         for n in ("vote_corridor", "chain_emit"):
             if in_stage[st].get(n, 0) < 1:
                 raise RuntimeError(f"the mesh run launched no {n} in {st}")
+    # stage 01 sketches each shard's rows (dist_overlap._sketch_shard)
+    for n in SKETCH_KERNELS:
+        if in_stage["01.raw_align"].get(n, 0) < 1:
+            raise RuntimeError(f"the mesh run launched no {n} in 01.raw_align")
     for rel in ("01.raw_align/raw.ovl.npz", "02.sort_align/sorted.ovl.npz"):
         diff = _first_diff(os.path.join(wd_main, rel), os.path.join(wd, rel))
         if diff:
@@ -3277,7 +3698,8 @@ def wave_fast_sweep(dev, rng, qs, ts, sizes=(8, 64, 256, 640), chunk=64):
     torch.cuda.empty_cache()
 
 
-def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn, batch):
+def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn, batch,
+                 sketch_batch):
     """Kernels at their path's shape: a Myers launch of 640 pairs of up to
     12288 columns (the small end of the main path's launches; myers_sweep
     covers the large end), the two wavefront pairs on a retry batch, the
@@ -3320,6 +3742,7 @@ def phase_timing(dev, retry_pairs, ext_pairs, ext_mean_mn, batch):
     out.update(r)
     r, _ = engine_timing(dev, batch)
     out.update(r)
+    out.update(sketch_timing(dev, sketch_batch))
     return out
 
 
@@ -3336,6 +3759,8 @@ def main() -> int:
         phase_kernels(dev)
     with watchdog(300, "the engine phase"):
         batch = phase_engine(dev)
+    with watchdog(300, "the sketch phase"):
+        sketch_batch = phase_sketch(dev, batch)
     phase_overlaps(dev)
     fast_launches = phase_fast_path(dev)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_ext_")
@@ -3360,14 +3785,17 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_hifi_")
     try:
-        hifi_launches = phase_hifi_path(dev, HIFI_GENOME_SIZE, workdir)
+        hifi_launches, hpc_launches = phase_hifi_path(dev, HIFI_GENOME_SIZE,
+                                                      workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    path_launches = {FAST_PATH: fast_launches, EXT_PATH: ext_launches,
+                     HPC_PATH: hpc_launches}
     for k, path in KERNEL_PATH.items():
-        launches[k] = (fast_launches if path == FAST_PATH else ext_launches)[k]
+        launches[k] = path_launches[path][k]
     with watchdog(420, "the timing phase"):
         timing = phase_timing(dev, facts["retry_pairs"], ext_pairs,
-                              ext_mean_mn, batch)
+                              ext_mean_mn, batch, sketch_batch)
     kernels = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]
@@ -3386,7 +3814,12 @@ def main() -> int:
             **{k: t[k] for k in ("host_native_ms", "wrapper_ms",
                                  "ms_l2_flushed", "ms_each_warm",
                                  "directory_ms", "searchsorted_ms",
-                                 "searchsorted_ms_l2_flushed") if k in t}))
+                                 "searchsorted_ms_l2_flushed",
+                                 "plain_call_ms", "plain_call_launches",
+                                 "hifi_ms", "hifi_plain_ms", "hifi_bound_ms",
+                                 "hifi_wrapper_ms", "hifi_plain_call_ms",
+                                 "hifi_plain_call_launches", "hifi_shape")
+               if k in t}))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(card)

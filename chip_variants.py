@@ -9,6 +9,7 @@
     python3 chip_variants.py --kernel chain_emit A.cu [B.cu ...]
     python3 chip_variants.py --kernel engine_anchor A.cu [B.cu ...]
     python3 chip_variants.py --turns PARENT_DIR
+    python3 chip_variants.py --match-turns PARENT_DIR
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -92,6 +93,18 @@ name from torch.profiler and the whole call by the host clock, warm and with
 the L2 flushed before each call.  Then each tree's own chip_smoke main, mesh
 (use_mesh = 8) and HiFi paths in a workdir of their own; every stage file of
 the first parent and the first of this checkout's runs must be byte-equal.
+
+--match-turns PARENT_DIR: stage 01's overlap search of the main path (all
+reads indexed at k = 15, w = 5; the seeds queried in chunks of 2000 as the
+pipeline queries them) with each tree's package, a process each, in turns
+parent, this, this in each mode of MATCH_TURN_MODES (comma-separated;
+default plain_sketch,plain_first; see match_turn), this, parent
+(--match-turn DIR [MODE]).  Each process makes three calls: the first
+cold, as in the pipeline, the second warm, both with the spans
+engine/host_fill and engine/match (wall and CPU time over the call, the
+first five batches, the median and the longest) and the caching
+allocator's counters over the call (cudaMalloc and cudaFree calls,
+retries); the third under torch.profiler, its device time by kernel name.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -632,6 +645,132 @@ def engine_anchor_turn(tree) -> int:
     return 0
 
 
+SPANS = ("engine/host_fill", "engine/match")
+
+
+def match_turn(tree, mode="") -> int:
+    """--match-turn DIR [MODE]: one turn of --match-turns with the package
+    in the checkout DIR.  MODE plain_sketch runs every sketch through the
+    plain version, plain_first only the first call's; warm_alloc first
+    allocates and frees 4 GiB on the card, so that the caching allocator
+    holds one segment to split; warm_kernels first runs find_overlaps on
+    the 16 shortest seeds, which launches every kernel of the call once.
+    Prints one JSON line."""
+    import chip_smoke as c
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    from nextdenovo_tpu_torch.ops import sketch as S
+    from nextdenovo_tpu_torch.overlap import engine as E
+    from nextdenovo_tpu_torch.utils.trace import get_tracer
+    if not E.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {E.__file__}, not the package in {tree}")
+    c.phase_env()
+    _build.build(native=False)
+    d = torch.device("cuda")
+    s1 = c.STAGE01
+    genome = simulate_genome(c.GENOME_SIZE, seed=1)
+    sim = simulate_reads(genome, coverage=c.COVERAGE, mean_len=c.MEAN_LEN,
+                         error_rate=c.ERROR_RATE, seed=2)
+    store = SeqStore.from_codes(sim.reads)
+    lens = np.asarray(store.length, np.int64)
+    seed_mask = lens >= c.SEED_CUTOFF
+    seeds = np.nonzero(seed_mask)[0]
+    idx = E.build_index(store, np.arange(len(store)), k=s1["k"], w=s1["w"],
+                        max_occ=s1["index_max_occ"], device=d)
+    kern = (E.sketch, E.sketch_wide)
+    plain = (S.sketch_plain, S.sketch_wide_plain) if mode else kern
+
+    def stage01():
+        n = 0
+        for q0 in range(0, len(seeds), 2000):
+            n += len(E.find_overlaps(
+                store, seeds[q0 : q0 + 2000], idx, k=s1["k"], w=s1["w"],
+                max_occ=s1["max_occ"], min_cnt=s1["min_cnt"],
+                min_span=s1["min_span"], top_k=s1["top_k"],
+                query_mask=seed_mask, device=d))
+        torch.cuda.synchronize()
+        return n
+
+    keys = ("segment.all.allocated", "segment.all.freed",
+            "num_alloc_retries", "num_device_alloc", "num_device_free")
+    tr = get_tracer()
+    res = {"tree": tree, "mode": mode, "calls": []}
+    m0 = torch.cuda.memory_stats()
+    if mode == "warm_alloc":
+        del m0
+        torch.empty(4 << 30, dtype=torch.uint8, device=d)
+        m0 = torch.cuda.memory_stats()
+    elif mode == "warm_kernels":
+        E.find_overlaps(store, seeds[np.argsort(lens[seeds])[:16]], idx,
+                        k=s1["k"], w=s1["w"], max_occ=s1["max_occ"],
+                        min_cnt=s1["min_cnt"], min_span=s1["min_span"],
+                        top_k=s1["top_k"], query_mask=seed_mask, device=d)
+        torch.cuda.synchronize()
+        m1 = torch.cuda.memory_stats()
+        res["warm_kernels_segments"] = (m1["segment.all.allocated"]
+                                        - m0["segment.all.allocated"])
+    for call in range(3):
+        E.sketch, E.sketch_wide = plain if (
+            mode == "plain_sketch" or (mode == "plain_first" and call == 0)
+        ) else kern
+        tr.reset()
+        m0 = torch.cuda.memory_stats()
+        t0 = time.perf_counter()
+        if call < 2:
+            n = stage01()
+            one = dict(wall_s=time.perf_counter() - t0, records=n)
+            m1 = torch.cuda.memory_stats()
+            one["allocator"] = {k: m1.get(k, 0) - m0.get(k, 0)
+                                for k in keys}
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                n = stage01()
+            one = dict(profiled_wall_s=time.perf_counter() - t0, records=n)
+            by_name = {}
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_name[e.key[:60]] = (round(e.device_time_total / 1e3,
+                                                 3), e.count)
+            one["device_ms_by_name"] = dict(sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:20])
+            one["device_ms"] = sum(v[0] for v in by_name.values())
+        one["spans"] = {}
+        for name in SPANS:
+            walls = [sp.wall for sp in tr.spans if sp.name == name]
+            one["spans"][name] = dict(
+                n=len(walls), wall_s=sum(walls),
+                cpu_s=sum(sp.cpu for sp in tr.spans if sp.name == name),
+                first5_s=[round(x, 5) for x in walls[:5]],
+                median_s=round(float(np.median(walls)), 6),
+                max_s=round(max(walls, default=0.0), 5))
+        res["calls"].append(one)
+    log(json.dumps({"match_turn": res}))
+    return 0
+
+
+def main_match_turns(parent) -> int:
+    """--match-turns PARENT: match_turn of PARENT and this checkout in
+    turns (see the module's docstring)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    modes = os.environ.get("MATCH_TURN_MODES", "plain_sketch,plain_first")
+    turns = [(parent, ""), (here, "")]
+    turns += [(here, m) for m in modes.split(",")] + [(here, ""), (parent, "")]
+    for tree, mode in turns:
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--match-turn", tree] + ([mode] if mode else []),
+                           cwd=here)
+        if r.returncode:
+            return r.returncode
+    return 0
+
+
 def main_turns(parent) -> int:
     """--turns PARENT: this checkout against the one in PARENT (an earlier
     tree, unpacked with git archive), in turns parent, this, this, parent:
@@ -705,6 +844,10 @@ def main(argv) -> int:
         return engine_anchor_turn(argv[1])
     if argv[:1] == ["--turns"]:
         return main_turns(argv[1])
+    if argv[:1] == ["--match-turn"]:
+        return match_turn(*argv[1:3])
+    if argv[:1] == ["--match-turns"]:
+        return main_match_turns(argv[1])
     do_lat = "--latency" in argv
     srcs = [a for a in argv if a != "--latency"]
     import chip_smoke as c

@@ -39,7 +39,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 # it used; CARD_LAUNCHES holds the same counts by card index
 LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
             "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0,
-            "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0}
+            "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0,
+            "sketch_select": 0, "sketch_emit": 0, "hpc_compress": 0}
 CARD_LAUNCHES = {}
 
 _lock = threading.Lock()
@@ -207,6 +208,12 @@ def _load_kernels() -> ctypes.CDLL:
     lib.ndt_chain_emit.restype = ci
     lib.ndt_chain_emit.argtypes = [vp] * 7 + [ll, ci, ci, ci, ci, ci,
                                               ctypes.c_float, vp]
+    lib.ndt_sketch_select.restype = ci
+    lib.ndt_sketch_select.argtypes = [vp, ll] + [vp] * 7 + [ci] * 4 + [vp]
+    lib.ndt_sketch_emit.restype = ci
+    lib.ndt_sketch_emit.argtypes = [vp] * 6 + [ci, ci, ll, vp]
+    lib.ndt_hpc_compress.restype = ci
+    lib.ndt_hpc_compress.argtypes = [vp, ll] + [vp] * 4 + [ci, ci, vp]
     lib.ndt_error_string.restype = ctypes.c_char_p
     lib.ndt_error_string.argtypes = [ci]
     return lib

@@ -1,10 +1,10 @@
-"""Minimizer sketching as batched tensor ops (PyTorch).
+"""Minimizer sketching: hand-written CUDA kernels and their plain PyTorch
+versions.
 
-Counterpart of nextdenovo_tpu/ops/sketch.py: k-mer assembly uses log2(k)
-shift-or doubling over 32-bit lanes, window minima use log2(w) min-shift
-doubling, and the hash is a murmur-style finalizer.  Selection rule:
-position i is a minimizer iff it is the leftmost-tie argmin of some
-w-window, matching minimap2's density guarantee.
+Counterpart of nextdenovo_tpu/ops/sketch.py.  Selection rule: position i
+is a minimizer iff it is the leftmost-tie argmin of some w-window, matching
+minimap2's density guarantee; the hash is a murmur-style finalizer over
+32-bit lanes of the canonical k-mer.
 
 k <= 31 packs into two (hi, lo) lanes (`sketch`); k <= 128 uses the generic
 multi-lane path (`sketch_wide`, the HiFi -k51 -w51 raw sketch).
@@ -12,15 +12,25 @@ multi-lane path (`sketch_wide`, the HiFi -k51 -w51 raw sketch).
 (`hpc_compress`) and reports positions in original coordinates; no
 pipeline stage sets it.
 
-32-bit unsigned values are held in int64 tensors in [0, 2^32): wrap-around
-multiply, logical shifts and unsigned comparison then follow from ordinary
-int64 arithmetic with a mask.
+`sketch`, `sketch_wide` and `hpc_compress` run their plain versions for CPU
+tensors.  For CUDA tensors they launch the kernels of csrc/sketch.cu:
+`sketch_select` (hashes, window minima and selection, a block a tile of a
+row) and `sketch_emit` (compaction in (row, position) order), and
+`hpc_compress`; a sketch reads its selected count back once, its one host
+sync.  The plain versions build k-mers by log2(k) shift-or doubling and
+window minima by log2(w) min-shift doubling, and hold 32-bit unsigned
+values in int64 tensors in [0, 2^32): wrap-around multiply, logical shifts
+and unsigned comparison then follow from ordinary int64 arithmetic with a
+mask.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from .. import _build
+from ..device import check_tensor
 
 _M32 = 0xFFFFFFFF
 UMAX = 0xFFFFFFFF
@@ -145,9 +155,9 @@ def sliding_min_pair(val, idx, w: int):
     return cv, cx
 
 
-def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
-           cap: int, own_lo=None, own_hi=None) -> Minimizers:
-    """Minimizers of a read batch.
+def sketch_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                 cap: int, own_lo=None, own_hi=None) -> Minimizers:
+    """Plain version of sketch (any device): minimizers of a read batch.
 
     codes: (B, L) integer base codes (padded); lengths: (B,) integer.
     cap: max number of emitted minimizers (flat across batch); the first
@@ -157,9 +167,15 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     reads: each chunk owns a disjoint slice, the halos make the window
     minima around the slice identical to a full-read computation.
     """
+    return emit_plain(*select_plain(codes, lengths, k, w, own_lo, own_hi),
+                      cap)
+
+
+def _hashes(codes, lengths, k: int):
+    """sketch's canonical hashes (UMAX where no k-mer counts) and strands,
+    two lanes (k <= 31); with the positions and their k-mer validity."""
     dev = codes.device
     B, L = codes.shape
-    lengths = lengths.to(torch.int64)
     (fhi, flo), (rhi, rlo) = kmer_pack(codes, k)
     pos = torch.arange(L, device=dev, dtype=torch.int64)[None, :].expand(B, L)
     valid_k = pos + k <= lengths[:, None]
@@ -171,17 +187,20 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     clo = torch.where(fwd_less, flo, rlo)
     h = hash_kmer(chi, clo)
     h = torch.where(valid_k & ~equal, h, UMAX)
-
-    return _select(h, strand, pos, valid_k, lengths, k, w, cap, own_lo,
-                   own_hi)
+    return h, strand, pos, valid_k
 
 
-def _select(h, strand, pos, valid_k, lengths, k: int, w: int, cap: int,
-            own_lo, own_hi, pos_map=None) -> Minimizers:
-    """Window selection and compaction shared by sketch and sketch_wide.
-    h: (B, L) hashes with UMAX where no k-mer counts.  pos_map: optional
+def select_plain(codes, lengths, k: int, w: int, own_lo=None, own_hi=None,
+                 pos_map=None, wide: bool = False):
+    """Plain version of sketch_select (any device): (h, strand, sel), each
+    (B, L): the canonical hashes (UMAX where no k-mer counts), strands and
+    the selected positions, window selection shared by sketch and
+    sketch_wide (wide: sketch_wide's lanes, k <= 128).  pos_map: optional
     (B, L) original position of each (compressed) column; ownership is
-    gated on it and it is what `pos` reports."""
+    gated on it."""
+    lengths = lengths.to(torch.int64)
+    h, strand, pos, valid_k = (_hashes_wide if wide else _hashes)(
+        codes, lengths, k)
     dev = h.device
     B, L = h.shape
     _, warg = sliding_min_pair(h, pos, w)
@@ -202,7 +221,14 @@ def _select(h, strand, pos, valid_k, lengths, k: int, w: int, cap: int,
         opos = pos if pos_map is None else pos_map
         sel = sel & (opos >= own_lo.to(torch.int64)[:, None]) & \
             (opos < own_hi.to(torch.int64)[:, None])
+    return h, strand, sel
 
+
+def emit_plain(h, strand, sel, cap: int, pos_map=None) -> Minimizers:
+    """Plain version of sketch_emit (any device): the selected positions
+    compacted in (row, position) order, the first `cap` kept; `pos` reports
+    pos_map's entry where it is given."""
+    L = h.shape[1]
     flat = sel.reshape(-1)
     hits = torch.nonzero(flat)[:, 0]
     n_all = int(hits.shape[0])
@@ -307,8 +333,9 @@ def hash_lanes(lanes):
     return h
 
 
-def hpc_compress(codes: torch.Tensor, lengths: torch.Tensor):
-    """Homopolymer-compress a padded batch: returns (codes_hpc, pos_map,
+def hpc_compress_plain(codes: torch.Tensor, lengths: torch.Tensor):
+    """Plain version of hpc_compress (any device).  Homopolymer-compress a
+    padded batch: returns (codes_hpc, pos_map,
     lengths_hpc), all over the whole (B, L) buffer, where codes_hpc[b, j]
     is the j-th run base (padded with 4) and pos_map[b, j] the ORIGINAL
     position of that run's first base (padded with 0).  Runs are of the
@@ -330,20 +357,11 @@ def hpc_compress(codes: torch.Tensor, lengths: torch.Tensor):
     return codes_hpc[:, :L], pos_map[:, :L], lengths_hpc
 
 
-def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
-                cap: int, hpc: bool = False, own_lo=None,
-                own_hi=None) -> Minimizers:
-    """Long-k (k <= 128) minimizer sketch, optionally homopolymer-
-    compressed (hpc).  Positions are reported in original read
-    coordinates.  own_lo/own_hi (optional, (B,)): emit only minimizers
-    whose ORIGINAL-coordinate position falls in [own_lo, own_hi) — the
-    halo-chunking hook (see sketch())."""
+def _hashes_wide(codes, lengths, k: int):
+    """sketch_wide's canonical hashes and strands (as _hashes) over
+    max(2, k // 16 + 1) lanes."""
     dev = codes.device
     B, L = codes.shape
-    pos_map = None
-    if hpc:
-        codes, pos_map, lengths = hpc_compress(codes, lengths)
-    lengths = lengths.to(torch.int64)
     # minimal lane count: k // 16 + 1 covers the 16 * n - 1 packing bound;
     # for k <= 31 (2 lanes) hashes match sketch() exactly
     n_lanes = max(2, k // 16 + 1)
@@ -355,5 +373,221 @@ def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     strand = torch.where(fwd_less, 0, 1)
     h = hash_lanes([torch.where(fwd_less, f, r) for f, r in zip(fl, rl)])
     h = torch.where(valid_k & ~equal, h, UMAX)
-    return _select(h, strand, pos, valid_k, lengths, k, w, cap, own_lo,
-                   own_hi, pos_map)
+    return h, strand, pos, valid_k
+
+
+def sketch_wide_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
+                      w: int, cap: int, hpc: bool = False, own_lo=None,
+                      own_hi=None) -> Minimizers:
+    """Plain version of sketch_wide (any device).  Long-k (k <= 128)
+    minimizer sketch, optionally homopolymer-compressed (hpc).  Positions
+    are reported in original read coordinates.  own_lo/own_hi (optional,
+    (B,)): emit only minimizers whose ORIGINAL-coordinate position falls in
+    [own_lo, own_hi) — the halo-chunking hook (see sketch())."""
+    pos_map = None
+    if hpc:
+        codes, pos_map, lengths = hpc_compress_plain(codes, lengths)
+    return emit_plain(*select_plain(codes, lengths, k, w, own_lo, own_hi,
+                                    pos_map, wide=True), cap, pos_map)
+
+
+# --------------------------------------------------------------------------
+# The device program: three hand-written CUDA kernels (csrc/sketch.cu).  The
+# wrappers take the plain versions above for CPU tensors only.
+
+SKETCH_TILE = 1024        # positions a block of sketch_select / sketch_emit
+SKETCH_W_MAX = 2048       # windows the kernels take at most
+SKETCH_K_MAX = 143        # 9 lanes of 32 bits: k <= 16 * 9 - 1
+
+
+def _codes_pitch(codes: torch.Tensor) -> int:
+    """Bytes between two rows of an int8 (B, L) codes tensor on a CUDA
+    device: contiguous, or a column slice codes[:, :L] of a wider one (the
+    mesh's shard buffers); the kernels read it a byte at a time, so no
+    alignment is asked."""
+    ok = (codes.dtype == torch.int8 and codes.dim() == 2
+          and (codes.shape[1] <= 1 or codes.stride(1) == 1)
+          and (codes.shape[0] <= 1 or codes.stride(0) >= codes.shape[1]))
+    if not ok:
+        raise ValueError(
+            f"codes: expected int8 (B, L) with unit stride along L, got "
+            f"{codes.dtype} {tuple(codes.shape)} strides "
+            f"{tuple(codes.stride())}")
+    return max(codes.stride(0), codes.shape[1])
+
+
+def _rows_i32(name: str, t: torch.Tensor, B: int, dev, lo: int, hi: int):
+    """A (B,) int32 tensor of t for the kernels: int32 as given, a wider
+    integer type clamped to [lo, hi] first, which keeps every comparison
+    the kernels make against positions in [0, L)."""
+    if t.dtype != torch.int32:
+        t = t.to(dev).clamp(lo, hi).to(torch.int32)
+    t = t.contiguous()
+    check_tensor(name, t, (B,), torch.int32, dev)
+    return t
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _hpc_launch(codes, lengths):
+    """hpc_compress's kernel: (codes_hpc, pos_map, lengths_hpc int32)."""
+    dev = codes.device
+    B, L = codes.shape
+    pitch = _codes_pitch(codes)
+    lens = _rows_i32("lengths", lengths, B, dev, 0, L)
+    codes_hpc = torch.empty((B, L), dtype=torch.int8, device=dev)
+    pos_map = torch.empty((B, L), dtype=torch.int64, device=dev)
+    lens_hpc = torch.empty(B, dtype=torch.int32, device=dev)
+    if B and L:
+        lib = _build.kernels()
+        with torch.cuda.device(dev):
+            rc = lib.ndt_hpc_compress(
+                codes.data_ptr(), pitch, lens.data_ptr(),
+                codes_hpc.data_ptr(), pos_map.data_ptr(),
+                lens_hpc.data_ptr(), B, L, _stream(dev))
+        _build.check_launch("hpc_compress", rc)
+        _build.count_launch("hpc_compress", dev)
+    else:
+        lens_hpc.zero_()
+    return codes_hpc, pos_map, lens_hpc
+
+
+class _Buffers(NamedTuple):
+    """One sketch launch's inputs as the kernels take them and its
+    buffers: hsh (B, L) int32 (uint32 hashes), flags (B, L) uint8, counts
+    one int32 a block, out (4, stride) int64, n_all (1,) int64."""
+    codes: torch.Tensor
+    pitch: int
+    lens: torch.Tensor
+    own_lo: object
+    own_hi: object
+    pos_map: object
+    hsh: torch.Tensor
+    flags: torch.Tensor
+    counts: torch.Tensor
+    out: torch.Tensor
+    n_all: torch.Tensor
+
+
+def _buffers(codes, lengths, k: int, w: int, cap: int, own_lo=None,
+             own_hi=None, pos_map=None) -> _Buffers:
+    """Check a CUDA sketch's inputs and allocate its buffers."""
+    dev = codes.device
+    B, L = codes.shape
+    pitch = _codes_pitch(codes)
+    if not (1 <= k <= SKETCH_K_MAX and 1 <= w <= SKETCH_W_MAX):
+        raise ValueError(f"sketch kernels take 1 <= k <= {SKETCH_K_MAX} and "
+                         f"1 <= w <= {SKETCH_W_MAX}, got k={k}, w={w}")
+    lens = _rows_i32("lengths", lengths, B, dev, 0, L)
+    if own_lo is not None:
+        own_lo = _rows_i32("own_lo", own_lo, B, dev, -1, L + 1)
+        own_hi = _rows_i32("own_hi", own_hi, B, dev, -1, L + 1)
+    if pos_map is not None:
+        check_tensor("pos_map", pos_map, (B, L), torch.int64, dev)
+    e = lambda *s, dt: torch.empty(s, dtype=dt, device=dev)
+    return _Buffers(
+        codes, pitch, lens, own_lo, own_hi, pos_map,
+        hsh=e(B, L, dt=torch.int32), flags=e(B, L, dt=torch.uint8),
+        counts=e(B * -(-L // SKETCH_TILE), dt=torch.int32),
+        out=e(4, max(0, min(cap, B * L)), dt=torch.int64),
+        n_all=e(1, dt=torch.int64))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _select_launch(lib, sb: _Buffers, k: int, w: int) -> None:
+    """One launch of sketch_select_kernel on the current device."""
+    B, L = sb.hsh.shape
+    rc = lib.ndt_sketch_select(
+        sb.codes.data_ptr(), sb.pitch, sb.lens.data_ptr(), _ptr(sb.own_lo),
+        _ptr(sb.own_hi), _ptr(sb.pos_map), sb.hsh.data_ptr(),
+        sb.flags.data_ptr(), sb.counts.data_ptr(), B, L, k, w,
+        _stream(sb.hsh.device))
+    _build.check_launch("sketch_select", rc)
+
+
+def _emit_launch(lib, sb: _Buffers) -> None:
+    """One launch of sketch_emit_kernel on the current device."""
+    B, L = sb.hsh.shape
+    rc = lib.ndt_sketch_emit(
+        sb.hsh.data_ptr(), sb.flags.data_ptr(), sb.counts.data_ptr(),
+        _ptr(sb.pos_map), sb.out.data_ptr(), sb.n_all.data_ptr(), B, L,
+        sb.out.shape[1], _stream(sb.hsh.device))
+    _build.check_launch("sketch_emit", rc)
+
+
+def _sketch_launch(codes, lengths, k: int, w: int, cap: int, own_lo, own_hi,
+                   pos_map=None) -> Minimizers:
+    """sketch_select and sketch_emit on codes' device, then n_all read
+    back: the call's one host sync."""
+    dev = codes.device
+    sb = _buffers(codes, lengths, k, w, cap, own_lo, own_hi, pos_map)
+    n_all = 0
+    if sb.hsh.numel():
+        lib = _build.kernels()
+        with torch.cuda.device(dev):
+            _select_launch(lib, sb, k, w)
+            _build.count_launch("sketch_select", dev)
+            _emit_launch(lib, sb)
+            _build.count_launch("sketch_emit", dev)
+        n_all = int(sb.n_all)
+    n = min(n_all, sb.out.shape[1])
+    rid, pos, h, strand = sb.out[:, :n].unbind(0)
+    return Minimizers(rid=rid, pos=pos, hash=h, strand=strand, n=n,
+                      n_all=n_all)
+
+
+def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+           cap: int, own_lo=None, own_hi=None) -> Minimizers:
+    """Minimizers of a read batch (k <= 31).
+
+    codes: (B, L) integer base codes (padded; int8 on a CUDA device, where
+    a column slice of a wider buffer is taken as it is); lengths: (B,)
+    integer, each at most L.  cap: max number of emitted minimizers (flat
+    across batch); the first `cap` in (row, position) order are kept.
+    own_lo/own_hi: optional (B,) — emit only minimizers whose position
+    falls in [own_lo, own_hi).  Used by halo-chunked sketching of long
+    reads: each chunk owns a disjoint slice, the halos make the window
+    minima around the slice identical to a full-read computation.
+
+    CPU tensors run sketch_plain; CUDA tensors launch sketch_select and
+    sketch_emit, then read the selected count: one host sync."""
+    if codes.device.type == "cpu":
+        return sketch_plain(codes, lengths, k, w, cap, own_lo, own_hi)
+    assert 1 <= k <= 31
+    return _sketch_launch(codes, lengths, k, w, cap, own_lo, own_hi)
+
+
+def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                cap: int, hpc: bool = False, own_lo=None,
+                own_hi=None) -> Minimizers:
+    """Long-k (k <= 128) minimizer sketch, optionally homopolymer-
+    compressed (hpc).  Positions are reported in original read
+    coordinates.  own_lo/own_hi (optional, (B,)): emit only minimizers
+    whose ORIGINAL-coordinate position falls in [own_lo, own_hi) — the
+    halo-chunking hook (see sketch()).
+
+    CPU tensors run sketch_wide_plain; CUDA tensors launch hpc_compress
+    (under hpc), sketch_select and sketch_emit: one host sync."""
+    if codes.device.type == "cpu":
+        return sketch_wide_plain(codes, lengths, k, w, cap, hpc, own_lo,
+                                 own_hi)
+    pos_map = None
+    if hpc:
+        codes, pos_map, lengths = _hpc_launch(codes, lengths)
+    return _sketch_launch(codes, lengths, k, w, cap, own_lo, own_hi, pos_map)
+
+
+def hpc_compress(codes: torch.Tensor, lengths: torch.Tensor):
+    """Homopolymer-compress a padded batch: (codes_hpc, pos_map,
+    lengths_hpc), as hpc_compress_plain gives them.  CPU tensors run
+    hpc_compress_plain; CUDA tensors (int8 codes, lengths at most L) launch
+    the kernel, no host sync."""
+    if codes.device.type == "cpu":
+        return hpc_compress_plain(codes, lengths)
+    codes_hpc, pos_map, lens = _hpc_launch(codes, lengths)
+    return codes_hpc, pos_map, lens.to(lengths.dtype)

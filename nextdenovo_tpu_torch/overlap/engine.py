@@ -160,11 +160,9 @@ def _chunk_rows(rids, lens, k: int, w: int, hpc: bool = False):
     return rows
 
 
-def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device,
-                 hpc: bool = False):
-    """Sketch a batch of chunk rows as one (len(rows), L) launch.  k > 31
-    or hpc routes to the long-kmer/HPC sketcher (the HiFi -k51 -w51 path).
-    Returned positions are BUFFER-local; callers add each row's g0."""
+def sketch_inputs(store: SeqStore, rows):
+    """A batch of chunk rows as the sketchers take it: codes (len(rows), L)
+    int8, lengths, own_lo, own_hi (len(rows),) int32, in numpy."""
     L = max(max(r[4] for r in rows), 1)
     # int8 keeps the host->device copy 4x smaller (base codes are 0..4);
     # the sketchers mask to 2 bits on device
@@ -177,6 +175,15 @@ def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device,
         codes[i, : len(c)] = c
         blens[i] = len(c)
         olo[i], ohi[i] = lo, hi
+    return codes, blens, olo, ohi
+
+
+def _sketch_rows(store: SeqStore, rows, k: int, w: int, cap: int, device,
+                 hpc: bool = False):
+    """Sketch a batch of chunk rows as one (len(rows), L) launch.  k > 31
+    or hpc routes to the long-kmer/HPC sketcher (the HiFi -k51 -w51 path).
+    Returned positions are BUFFER-local; callers add each row's g0."""
+    codes, blens, olo, ohi = sketch_inputs(store, rows)
     to = lambda a: torch.from_numpy(a).to(device)
     if k > 31 or hpc:
         return sketch_wide(to(codes), to(blens), k=k, w=w, cap=cap, hpc=hpc,
@@ -196,6 +203,7 @@ def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
     Reads are batched in length order so each sketch batch carries rows of
     similar length, and long reads are halo-chunked (_chunk_rows).  Index
     entry order is irrelevant — _build_index re-sorts by hash."""
+    from ..utils import span as _tspan
     dev = resolve_device(device)
     lens = np.asarray(store.length, np.int64)
     parts = []
@@ -206,7 +214,8 @@ def build_index(store: SeqStore, rids: np.ndarray, k: int, w: int,
     cap_mini = 2 * rows_lp // max(1, w) + 1024
     for s in range(0, len(rows), batch_rows):
         sub = rows[s : s + batch_rows]
-        m = _sketch_rows(store, sub, k, w, cap_mini, dev, hpc=hpc)
+        with _tspan("engine/index_sketch", rows=len(sub)):
+            m = _sketch_rows(store, sub, k, w, cap_mini, dev, hpc=hpc)
         if m.n_all > m.n:
             raise RuntimeError(
                 f"sketch cap overflow building index: selected "

@@ -61,7 +61,9 @@ def _sketch_shard(codes: torch.Tensor, lens: np.ndarray, k: int, w: int):
                 <= SKETCH_POSITIONS:
             top = max(top, int(lens[r1]))
             r1 += 1
-        lt = torch.from_numpy(lens[r0:r1].astype(np.int64)).to(codes.device)
+        lt = torch.from_numpy(lens[r0:r1].astype(np.int32)).to(codes.device)
+        # a column slice of the shard's buffer: the kernels take its row
+        # pitch, no copy
         m = sketch(codes[r0:r1, :top], lt, k=k, w=w, cap=(r1 - r0) * top)
         parts.append((m.rid + r0, m.pos, m.hash, m.strand))
         r0 = r1

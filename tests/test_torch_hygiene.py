@@ -121,7 +121,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     a clear error."""
     import torch
     from nextdenovo_tpu_torch import _build
-    from nextdenovo_tpu_torch.ops import align, extend, myers
+    from nextdenovo_tpu_torch.ops import align, extend, myers, sketch
     from nextdenovo_tpu_torch.overlap import engine
     monkeypatch.setattr(_build, "_kernels", None)
     monkeypatch.setattr(_build, "KERNEL_LIB",
@@ -136,7 +136,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     assert sorted(_build.LAUNCHES) == sorted(
         ["myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
          "wave_fast_fwd", "wave_fast_tb", "engine_anchor", "vote_corridor",
-         "chain_emit"])
+         "chain_emit", "sketch_select", "sketch_emit", "hpc_compress"])
     for mod, name in ((myers, "myers_fwd_plain"), (myers, "myers_tb_plain"),
                       (align, "wave_fwd_plain"), (align, "wave_tb_plain"),
                       (align, "wave_fast_fwd_plain"),
@@ -144,7 +144,9 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
                       (extend, "ext_fwd_plain"),
                       (engine, "engine_anchor_plain"),
                       (engine, "vote_corridor_plain"),
-                      (engine, "chain_emit_plain")):
+                      (engine, "chain_emit_plain"),
+                      (sketch, "sketch_plain"), (sketch, "sketch_wide_plain"),
+                      (sketch, "hpc_compress_plain")):
         monkeypatch.setattr(mod, name,
                             lambda *a, **k: called.append(1))
     meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
@@ -182,6 +184,13 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         engine.chain_emit(*(m64(7),) * 4, k=15, top_k=4, min_cnt=4,
                           min_span=500)
+    codes8 = torch.empty((2, 50), dtype=torch.int8, device="meta")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sketch.sketch(codes8, meta(2), k=15, w=5, cap=64)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sketch.sketch_wide(codes8, meta(2), k=51, w=51, cap=64, hpc=True)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        sketch.hpc_compress(codes8, meta(2))
     assert not called
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
@@ -211,4 +220,6 @@ def test_kernels_match_plain_on_the_card():
     res.update(chip_smoke.compare_fast_kernels(qs, ts, dev, "test"))
     eq, et = chip_smoke.ext_tail_pairs(rng, 32)
     res.update(chip_smoke.compare_ext_kernel(eq, et, dev, "test"))
-    assert len(res) == 7 and all(v["exact"] for v in res.values())
+    res.update(chip_smoke.sketch_sets(dev, rng, ks=(15, 51), ws=(5, 51),
+                                      slices=((15, 5), (51, 51))))
+    assert len(res) == 10 and all(v["exact"] for v in res.values())
