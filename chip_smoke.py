@@ -111,6 +111,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              prints the stage walls, the launches by stage, the peak memory
              and how many corrected reads are byte-equal to main_path's
              (on a machine of several cards, on the first only)
+  route      myers_streams, route_buckets, seed_symmetrize and the mesh
+             lookup's engine_anchor against their plain versions on the
+             card, every output bit for bit: build_streams on empty queries
+             and targets, m = n, m >> n, off at 16 and W - 16, B = 1, B =
+             5120 and the main path's launch shape; bucketize on n = 1, 2, 8
+             and 512, truncating caps, destinations outside the mesh, N = 0,
+             a launch of 1.3 M rows x 4 fields and the mesh path's own
+             calls of 4, 5 and 8 fields (recorded during mesh_path); the
+             mesh path's lookup of one shard's received minimizers with the
+             pair-once gate and without it; seed_symmetrize on the mesh
+             path's records of one shard and on records with ids negative,
+             past the reads and equal.  One host sync a bucketize call
+             (counted; more fails the run), and the syncs of one
+             myers_align sub-batch, counted.  Every path's run launched
+             myers_streams as often as myers_fwd; mesh_path (and
+             mesh_cards) route_buckets, seed_symmetrize and engine_anchor.
+             Then their times: myers_streams at the main path's launch
+             shape (alone, beside the replaced ops on the pads and their
+             device kernels, and the host's row fill against the one
+             copy), route_buckets on the mesh path's stage-01 sketch route,
+             seed_symmetrize on its records (each alone and beside the
+             plain steps on the card) and the mesh lookup by engine_anchor
+             against the plain lookup; the recorded calls are then freed
   mesh_groups
              the shards in two groups on the one card (two host threads
              against one device) against one group, on the main path's
@@ -176,7 +199,10 @@ line of stdout is {"ok": true, "device": {...}}; the line before the card
 line holds {"kernels": [...]}: the kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run, hpc_compress's from the HiFi reads'
-hpc index build; `launches_hifi` holds each kernel's
+hpc index build, route_buckets' and seed_symmetrize's from the
+use_mesh = 8 run; `library_ms` is one PyTorch call's time on the same
+inputs where one computes the kernel's function (torch.nonzero beside
+sketch_emit), else null; `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
 process of the two-host run, `launches_mesh` its launches on the
 use_mesh = 8 run, `launches_mesh_cards` on the use_mesh = 8 run over the
@@ -184,6 +210,7 @@ cards (null where the machine has one card).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
@@ -241,13 +268,21 @@ KERNEL_INFO = {
                         replaces="nextdenovo_tpu/ops/sketch.py:141"),
     "hpc_compress": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
                          replaces="nextdenovo_tpu/ops/sketch.py:281"),
+    "myers_streams": dict(source="nextdenovo_tpu_torch/csrc/streams.cu",
+                          replaces="nextdenovo_tpu/ops/myers.py:445"),
+    "route_buckets": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
+                          replaces="nextdenovo_tpu/parallel/dist_overlap.py:37"),
+    "seed_symmetrize": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
+                            replaces="nextdenovo_tpu/parallel/dist_sort.py:34"),
 }
 # the path a kernel's launches are read from, where it is not the task = all
 # run
 FAST_PATH, EXT_PATH = "band_align(R=1)", "input_type = corrected, task = assemble"
 HPC_PATH = "build_index(hpc=True) of the HiFi path's reads"
+MESH_PATH = "task = all, use_mesh = 8"
 KERNEL_PATH = {"wave_fast_fwd": FAST_PATH, "wave_fast_tb": FAST_PATH,
-               "ext_fwd": EXT_PATH, "hpc_compress": HPC_PATH}
+               "ext_fwd": EXT_PATH, "hpc_compress": HPC_PATH,
+               "route_buckets": MESH_PATH, "seed_symmetrize": MESH_PATH}
 FAST_PATH_KERNELS = ("wave_fast_fwd", "wave_fast_tb")
 
 
@@ -2271,12 +2306,17 @@ def _sketch_shape_timing(dev, tag, codes, lens, lo, hi, k, w, cap,
     events after a device sleep), the whole wrapper call (host sync
     included), the plain versions' select and emit steps and whole call on
     the card, the plain call's device kernels."""
+    import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.ops import sketch as S
     lib = _build.kernels()
     sb = S._buffers(codes, lens, k, w, cap, lo, hi)
     sel_ms = _events_ms(lambda: S._select_launch(lib, sb, k, w))
     emit_ms = _events_ms(lambda: S._emit_launch(lib, sb))
+    # the library call beside sketch_emit: the compaction's indices, one
+    # torch.nonzero of the selected flags (the gathers not included)
+    selected = (sb.flags & 2) != 0
+    nonzero_ms = _events_ms(lambda: torch.nonzero(selected))
     call = (lambda: S.sketch_wide(codes, lens, k, w, cap, own_lo=lo,
                                   own_hi=hi)) if wide else \
         (lambda: S.sketch(codes, lens, k, w, cap, own_lo=lo, own_hi=hi))
@@ -2294,6 +2334,7 @@ def _sketch_shape_timing(dev, tag, codes, lens, lo, hi, k, w, cap,
     _sketch_record(out, tag, m, pcall())
     _select_record(out, tag, codes, lens, k, w, (lo, hi))
     nvalid = _valid_positions(lens, L)
+    out["sketch_emit"]["library_ms"] = nonzero_ms
     for name, ms, pms in (("sketch_select", sel_ms, psel_ms),
                           ("sketch_emit", emit_ms, pemit_ms)):
         out[name].update(ms=ms, plain_ms=pms, wrapper_ms=call_ms,
@@ -2307,7 +2348,8 @@ def _sketch_shape_timing(dev, tag, codes, lens, lo, hi, k, w, cap,
         f"{out['sketch_select']['bound_ms']:.4f}, "
         f"{out['sketch_select']['bound_by']}), sketch_emit alone "
         f"{emit_ms:.4f} ms (bound {out['sketch_emit']['bound_ms']:.4f}, "
-        f"{out['sketch_emit']['bound_by']}); the wrapper's call "
+        f"{out['sketch_emit']['bound_by']}; torch.nonzero of the selected "
+        f"flags {nonzero_ms:.4f} ms); the wrapper's call "
         f"{call_ms:.4f} ms; plain on the card: select {psel_ms:.3f} ms, emit "
         f"{pemit_ms:.3f} ms, call {pcall_ms:.3f} ms in {n_pl} device kernels")
     return out
@@ -3023,7 +3065,8 @@ def _first_diff(a_p, b_p):
     return "" if n_a == n_b else f"{n_a} records against {n_b}"
 
 
-def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
+def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS,
+                    capture=False):
     """The main path's reads and config with use_mesh = 8 in a fresh
     workdir through the CLI entry: stages 01, 02, 03, 04 and 06 run the
     mesh path, eight shards on one card (the first: on a machine of several
@@ -3034,8 +3077,10 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
     04 and 06, and the limits of PERF.md section 2; prints the stage walls,
     the launches by stage, the peak device memory and how many corrected
     reads are byte-equal to the main path's (the mesh path aligns long
-    supports whole, so not all need be).  Returns the launch counts and the
-    peak device memory."""
+    supports whole, so not all need be).  With capture, the run's first
+    lookups, bucketings and symmetrize pass go into MESH_CALLS for
+    phase_route and route_timing.  Returns the launch counts and the peak
+    device memory."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch import _build
@@ -3059,7 +3104,8 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
     one = (["--device", f"cuda:{torch.cuda.current_device()}"]
            if torch.cuda.device_count() > 1 else [])
     t0 = time.time()
-    rc = cli_main(["run", cfg_p] + one)
+    with (capture_mesh_calls() if capture else contextlib.nullcontext()):
+        rc = cli_main(["run", cfg_p] + one)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(_build.LAUNCHES)
@@ -3089,11 +3135,18 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS):
     for st in ("03.seed_cns", "04.cns_align", "06.ctg_cns"):
         if in_stage[st].get("myers_fwd", 0) < 1:
             raise RuntimeError(f"the mesh run launched no myers_fwd in {st}")
-    # the mesh overlap step votes with _vote_emit (its lookup is its own)
+    # the mesh overlap step routes with route_buckets, looks up with
+    # engine_anchor and votes with _vote_emit; the sort symmetrizes and
+    # routes its records
     for st in ("01.raw_align", "04.cns_align", "06.ctg_cns"):
-        for n in ("vote_corridor", "chain_emit"):
+        for n in ("vote_corridor", "chain_emit", "engine_anchor",
+                  "route_buckets"):
             if in_stage[st].get(n, 0) < 1:
                 raise RuntimeError(f"the mesh run launched no {n} in {st}")
+    for n in ROUTE_KERNELS:
+        if in_stage["02.sort_align"].get(n, 0) < 1:
+            raise RuntimeError(f"the mesh run launched no {n} in "
+                               f"02.sort_align")
     # stage 01 sketches each shard's rows (dist_overlap._sketch_shard)
     for n in SKETCH_KERNELS:
         if in_stage["01.raw_align"].get(n, 0) < 1:
@@ -3430,6 +3483,9 @@ def phase_mesh_cards(dev, workdir, sim, genome, one_card_peak,
         for n in ("myers_fwd", "vote_corridor", "chain_emit"):
             if c["launches"].get(n, 0) < 1:
                 raise RuntimeError(f"card {idx} launched no {n}")
+    for n in ("engine_anchor",) + ROUTE_KERNELS:
+        if marks["06.ctg_cns"][n] < 1:
+            raise RuntimeError(f"the run over the cards launched no {n}")
     by = {}
     for r in rows:
         if r["name"].startswith(("mesh/", "kernel/")) \
@@ -3475,6 +3531,427 @@ def _anchor(c, g, k=25, tries=20):
     if a is None or b is None or b <= a:
         return None
     return g[a:b]
+
+
+# ---------------------------------------------------------------------------
+# the Myers streams and the mesh path's routing (myers_streams,
+# route_buckets, seed_symmetrize, engine_anchor on the mesh lookup)
+
+ROUTE_KERNELS = ("route_buckets", "seed_symmetrize")
+# the calls of the mesh path's run that phase_route and route_timing replay
+# on the card: dist_overlap's lookups (one with the pair-once gate, one
+# without, where the run made them), the first bucketing of each kind
+# (sketch_route: 4 fields, lookup_route: 5, the sort's route: 8) and the
+# sort's first symmetrize pass
+MESH_CALLS = {}
+
+
+def _moved(x, dev):
+    """x with every tensor in it (through tuples and named tuples) on dev."""
+    import torch
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        items = [_moved(v, dev) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def mesh_call(key, dev):
+    """A call MESH_CALLS recorded, its tensors back on dev."""
+    return _moved(MESH_CALLS[key], dev)
+
+
+class capture_mesh_calls:
+    """Within the block, the mesh path's first calls of dist_overlap._lookup
+    (gate on, gate off), of bucketize by field count and of
+    dist_sort.seed_symmetrize are recorded into MESH_CALLS (their arguments,
+    copied to the host, so that the run's peak device memory stays its own)
+    and run as they would."""
+
+    def __enter__(self):
+        from nextdenovo_tpu_torch.parallel import dist_overlap as DO
+        from nextdenovo_tpu_torch.parallel import dist_sort as DS
+        MESH_CALLS.clear()
+        self.saved = [(DO, "_lookup", DO._lookup),
+                      (DO, "bucketize", DO.bucketize),
+                      (DS, "bucketize", DS.bucketize),
+                      (DS, "seed_symmetrize", DS.seed_symmetrize)]
+
+        def record(key, args):
+            if key not in MESH_CALLS:
+                MESH_CALLS[key] = _moved(args, "cpu")
+
+        def lookup(recv, ix, qm, amask, max_occ, _f=DO._lookup):
+            record("lookup_gate" if qm is not None else "lookup_nogate",
+                   (recv, ix, qm, amask, max_occ))
+            return _f(recv, ix, qm, amask, max_occ)
+
+        def bucketize(fields, dest, valid, n, cap, _f=DO.bucketize):
+            record(f"bucketize_{len(fields)}",
+                   (tuple(fields), dest, valid, n, cap))
+            return _f(fields, dest, valid, n, cap)
+
+        def symmetrize(rec, is_seed, lens, n, _f=DS.seed_symmetrize):
+            record("seed_symmetrize", (rec, is_seed, lens, n))
+            return _f(rec, is_seed, lens, n)
+
+        DO._lookup, DO.bucketize = lookup, bucketize
+        DS.bucketize, DS.seed_symmetrize = bucketize, symmetrize
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def streams_inputs(qs, ts, dev, off=None, nw=8):
+    """The tensors myers_align hands build_streams for these pairs (off as
+    given, or as myers_align sets it)."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.ops import myers as M
+    W = 32 * nw
+    sw = [(t, q) if len(q) < len(t) else (q, t) for q, t in zip(qs, ts)]
+    qs = [np.asarray(a, np.uint8) for a, _ in sw]
+    ts = [np.asarray(b, np.uint8) for _, b in sw]
+    m = np.array([len(a) for a in qs], np.int32)
+    n = np.array([len(b) for b in ts], np.int32)
+    if off is None:
+        off = np.clip((W - (m - n)) // 2, 16, W - 16)
+    off = np.asarray(off, np.int32)
+    flat, starts = M.flat_pairs(qs, ts)
+    to = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    fl, st = to(flat), to(starts)
+    args = (fl, fl, st[0], st[1], to(m), to(n), to(off))
+    return dict(args=args, n_pad=max(int(n.max()), 1), m=m, n=n, off=off,
+                qs=qs, ts=ts)
+
+
+def streams_sets(rng):
+    """(tag, queries, targets, off or None) of phase_route's myers_streams
+    sets."""
+    import numpy as np
+    e = np.zeros(0, np.int8)
+    one = lambda L: rng.integers(0, 4, L).astype(np.int8)
+    x = one(3000)
+    yield "empty queries and targets", [e, e, one(7)], [e, one(5), e], None
+    yield "m = n", [x, one(2000)], [x.copy(), one(2000)], None
+    yield "m >> n (off clamped at 16)", [one(9000), one(600)], \
+        [one(2000), one(100)], None
+    yield "off at 16 and W - 16", [one(4000), one(4000), one(50)], \
+        [one(3900), one(3500), one(50)], [16, 240, 240]
+    yield "B = 1", [one(12000)], [one(11800)], None
+    qs, ts = make_pairs(rng, 5120, 200, 1200)
+    yield "B = 5120", qs, ts, None
+    qs, ts = make_pairs(rng, 640, 11000, 12288)
+    yield "the main path's launch shape (640 x 11000-12288)", qs, ts, None
+
+
+def _route_sets(rng, dev):
+    """(tag, fields, dest, valid, n, cap) of phase_route's route_buckets
+    sets."""
+    import torch
+    i64 = torch.int64
+
+    def case(N, n, F, outside=0.0, valid_p=None):
+        fields = tuple(torch.randint(-2**40, 2**40, (N,), dtype=i64,
+                                     device=dev) for _ in range(F))
+        dest = torch.randint(0, n, (N,), dtype=i64, device=dev)
+        if outside:
+            far = torch.rand(N, device=dev) < outside
+            dest = torch.where(far, torch.where(dest % 2 == 0, -1 - dest,
+                                                n + dest), dest)
+        valid = None if valid_p is None else \
+            torch.rand(N, device=dev) < valid_p
+        return fields, dest, valid
+
+    yield ("n = 1", *case(5000, 1, 4), 1, 10**6)
+    yield ("n = 2, a cap that truncates", *case(20000, 2, 5, 0.0, 0.8), 2,
+           6000)
+    yield ("n = 8, destinations outside the mesh, a truncating cap",
+           *case(50000, 8, 8, 0.05, 0.7), 8, 4000)
+    yield ("N = 0", *case(0, 8, 4), 8, 100)
+    yield ("n = 512", *case(300000, 512, 2, 0.01, 0.9), 512, 10**6)
+    yield ("a mesh-sized launch (1.3 M rows x 4 fields, n = 8)",
+           *case(1_300_000, 8, 4), 8, 10**7)
+    for key in ("bucketize_4", "bucketize_5", "bucketize_8"):
+        if key in MESH_CALLS:
+            fields, dest, valid, n, cap = mesh_call(key, dev)
+            yield (f"the mesh path's {key[-1]}-field call", fields, dest,
+                   valid, n, cap)
+
+
+def _same_buckets(tag, got, want):
+    """bucketize's (buckets, counts) on the card against bucketize_plain's
+    on the card, exactly."""
+    import numpy as np
+    (gb, gc), (wb, wc) = got, want
+    if not np.array_equal(gc, wc):
+        raise RuntimeError(f"route_buckets: counts differ on '{tag}': {gc} "
+                           f"against {wc}")
+    err = 0.0
+    for d, (a, b) in enumerate(zip(gb, wb)):
+        for f, (x, y) in enumerate(zip(a, b)):
+            ok, e = _tensors_equal(x, y)
+            err = max(err, e)
+            if not ok:
+                raise RuntimeError(f"route_buckets: bucket {d}, field {f} "
+                                   f"differs on '{tag}'")
+    return err
+
+
+def phase_route(dev):
+    """myers_streams, route_buckets, seed_symmetrize and the mesh lookup's
+    engine_anchor against their plain versions on the card, every output
+    exact: build_streams on the sets of streams_sets; bucketize on n = 1, 2,
+    8 and 512, truncating caps, destinations outside the mesh, N = 0, a
+    mesh-sized launch and the mesh path's own calls of each field count;
+    the mesh path's lookups (engine_anchor against _lookup_plain) with the
+    pair-once gate and without it; seed_symmetrize on the mesh path's raw
+    records of one shard and on records with ids out of range, negative or
+    equal.  The host syncs of one bucketize call (it must be one) and of
+    one myers_align sub-batch, counted.  Returns {name: exact, max_abs_err}
+    for the kernels line."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch.ops import myers as M
+    from nextdenovo_tpu_torch.parallel import dist_overlap as DO
+    from nextdenovo_tpu_torch.parallel import dist_sort as DS
+    from nextdenovo_tpu_torch.parallel import mesh as MS
+    rng = np.random.default_rng(19)
+    res = {"myers_streams": dict(exact=True, max_abs_err=0.0),
+           "route_buckets": dict(exact=True, max_abs_err=0.0),
+           "seed_symmetrize": dict(exact=True, max_abs_err=0.0)}
+    for tag, qs, ts, off in streams_sets(rng):
+        si = streams_inputs(qs, ts, dev, off)
+        got = M.build_streams(*si["args"], nw=8, n_pad=si["n_pad"])
+        want = M.build_streams_plain(*si["args"], nw=8)
+        r = {}
+        _record(r, tag, "myers_streams", got, want)
+        res["myers_streams"]["max_abs_err"] = max(
+            res["myers_streams"]["max_abs_err"], r["myers_streams"]
+            ["max_abs_err"])
+        log(f"[route] myers_streams = plain on '{tag}' ({len(qs)} pairs, "
+            f"{si['n_pad']} columns)")
+        del got, want, si
+    torch.cuda.empty_cache()
+    qs, ts = make_pairs(rng, 640, 11000, 12288)
+    _, n_sync, at = count_syncs(lambda: M.myers_align(qs, ts, device=dev))
+    log(f"[route] host syncs of one myers_align sub-batch (640 pairs): "
+        f"{n_sync} at {at}")
+    for tag, fields, dest, valid, n, cap in _route_sets(rng, dev):
+        got = MS.bucketize(fields, dest, valid, n, cap)
+        want = MS.bucketize_plain(fields, dest, valid, n, cap)
+        err = _same_buckets(tag, got, want)
+        log(f"[route] route_buckets = plain on '{tag}' ({dest.shape[0]} "
+            f"rows, {len(fields)} fields, counts {got[1].tolist()[:9]}"
+            f"{' ...' if n > 8 else ''}, cap {cap})")
+        res["route_buckets"]["max_abs_err"] = max(
+            res["route_buckets"]["max_abs_err"], err)
+        if tag.startswith("n = 8"):
+            sync_case = (fields, dest, valid, n, cap)
+    _, n_sync, at = count_syncs(lambda: MS.bucketize(*sync_case))
+    log(f"[route] host syncs of one bucketize call: {n_sync} at {at}")
+    if n_sync != 1:
+        raise RuntimeError(f"one bucketize call made {n_sync} host syncs "
+                           f"(one expected)")
+    res["route_buckets"]["host_syncs"] = n_sync
+    lookups = [(k, v) for k, v in MESH_CALLS.items()
+               if k.startswith("lookup")]
+    if not lookups:
+        raise RuntimeError("the mesh path's run made no lookup to replay")
+    recv, ix, qm, amask, max_occ = mesh_call(lookups[0][0], dev)
+    for tag, q in (("with the pair-once gate", qm), ("without it", None)):
+        if tag.startswith("with ") and q is None:
+            continue
+        am = DO.anchor_mask(q, int(ix.rid.max()) + 1, dev)
+        got = DO._lookup_anchor(recv, ix, am, max_occ)
+        want = DO._lookup_plain(recv, *ix.unpacked(), q,
+                                max_occ)
+        r = {}
+        _record(r, tag, "engine_anchor", got, want)
+        log(f"[route] the mesh lookup by engine_anchor = _lookup_plain "
+            f"{tag} ({recv[0].shape[0]} received minimizers of a shard, "
+            f"{got[0].shape[0]} anchors)")
+    if "seed_symmetrize" not in MESH_CALLS:
+        raise RuntimeError("the mesh path's run made no symmetrize pass")
+    rec, is_seed, lens, n = mesh_call("seed_symmetrize", dev)
+    bad = rec.clone()
+    R = bad.shape[0]
+    bad[: R // 8, 0] = -torch.arange(1, R // 8 + 1, device=dev)
+    bad[R // 8 : R // 4, 4] = lens.shape[0] + torch.arange(R // 8,
+                                                           device=dev)
+    bad[R // 4 : R // 3, 4] = bad[R // 4 : R // 3, 0]
+    for tag, r8 in (("the mesh path's raw records of one shard", rec),
+                    ("ids negative, past the reads, equal", bad)):
+        got = DS.seed_symmetrize(r8, is_seed, lens, n)
+        want = DS.seed_symmetrize_plain(r8, is_seed, lens, n)
+        r = {}
+        _record(r, tag, "seed_symmetrize", got, want)
+        log(f"[route] seed_symmetrize = plain on '{tag}' ({R} records, "
+            f"{int(want[1].sum())} views kept)")
+    return res
+
+
+def route_timing(dev, reps=5):
+    """myers_streams at the main path's launch shape (640 pairs of
+    11000-12288 columns), route_buckets on the mesh path's stage-01 sketch
+    route (the 4-field call; a mesh-sized synthetic launch where the run
+    made none) and seed_symmetrize on the mesh path's records of one shard,
+    each alone (launches only, after a device sleep) beside its bound and
+    the plain steps it replaces on the card; the host side of a Myers
+    sub-batch's inputs, the old row fill against the flat array; the mesh
+    lookup by engine_anchor (launch alone) against the plain lookup.
+    Returns {name: result}."""
+    import numpy as np
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import myers as M
+    from nextdenovo_tpu_torch.overlap import engine as E
+    from nextdenovo_tpu_torch.parallel import dist_overlap as DO
+    from nextdenovo_tpu_torch.parallel import dist_sort as DS
+    from nextdenovo_tpu_torch.parallel import mesh as MS
+    out = {}
+    rng = np.random.default_rng(23)
+    qs, ts = make_pairs(rng, 640, 11000, 12288)
+    si = streams_inputs(qs, ts, dev)
+    a = si["args"]
+    B, n_pad, W = len(qs), si["n_pad"], 256
+    ms = _events_ms(lambda: M.build_streams(*a, nw=8, n_pad=n_pad), reps)
+    _, plain_ms = timed(lambda: M.build_streams_plain(*a, nw=8), 3)
+    # the old path: pads filled row by row on the host, two copies in, the
+    # jitted program's ops on the card; the new: one buffer, one copy in
+    t0 = time.perf_counter()
+    qpad = np.full((B, int(si["m"].max()) + W + 2), 4, np.int8)
+    tpad = np.full((B, n_pad), 4, np.int8)
+    for b in range(B):
+        qpad[b, : si["m"][b]] = si["qs"][b]
+        tpad[b, : si["n"][b]] = si["ts"][b]
+    qpad_d, tpad_d = torch.from_numpy(qpad).to(dev), \
+        torch.from_numpy(tpad).to(dev)
+    torch.cuda.synchronize()
+    old_host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fl = M.upload_pairs(si["qs"], si["ts"], si["m"], si["n"], si["off"], dev)
+    torch.cuda.synchronize()
+    new_host_ms = (time.perf_counter() - t0) * 1e3
+    old_dev = lambda: M._build_streams(qpad_d, tpad_d, a[6], nw=8)
+    _, old_ms = timed(old_dev, 3)
+    old_kernels = plain_launches(old_dev)
+    r = {}
+    _record(r, "the main path's launch shape", "myers_streams",
+            M.build_streams(*a, nw=8, n_pad=n_pad), old_dev())
+    qbytes = int(np.minimum(si["m"], n_pad + W - si["off"]).sum())
+    byt = 2 * n_pad * B * 4 + 4 * 8 * B * 4 + B * 28 + qbytes \
+        + int(si["n"].sum())
+    out["myers_streams"] = dict(
+        r["myers_streams"], ms=ms, plain_ms=plain_ms,
+        jitted_ops_ms=old_ms, jitted_ops_kernels=old_kernels,
+        host_row_fill_ms=old_host_ms, host_flat_ms=new_host_ms,
+        shape=f"B={B} columns={n_pad}", **_bound(byt, 0))
+    log(f"[timing] myers_streams at {B} pairs x {n_pad} columns: alone "
+        f"{ms:.4f} ms (bound {out['myers_streams']['bound_ms']:.4f}, bytes); "
+        f"build_streams_plain on the card {plain_ms:.3f} ms; the replaced "
+        f"ops on the pads (_build_streams) {old_ms:.3f} ms in {old_kernels} "
+        f"device kernels; host: pads filled row by row and copied "
+        f"{old_host_ms:.1f} ms, the flat array and its copy {new_host_ms:.1f}"
+        f" ms")
+    del si, a, qpad_d, tpad_d, fl
+    torch.cuda.empty_cache()
+
+    if "bucketize_4" in MESH_CALLS:
+        fields, dest, valid, n, cap = mesh_call("bucketize_4", dev)
+        where = "the mesh path's stage-01 sketch route of one shard"
+    else:
+        fields, dest, valid, n, cap = next(
+            s[1:] for s in _route_sets(rng, dev) if s[0].startswith("a mesh"))
+        where = "a mesh-sized synthetic launch"
+    N, F = dest.shape[0], len(fields)
+    ms = _events_ms(lambda: MS._route_launch(fields, dest, valid, n, cap),
+                    reps)
+    _, call_ms = timed(lambda: MS.bucketize(fields, dest, valid, n, cap), 3)
+    _, plain_ms = timed(lambda: MS.bucketize_plain(fields, dest, valid, n,
+                                                   cap), 3)
+    got = MS.bucketize(fields, dest, valid, n, cap)
+    err = _same_buckets(where, got, MS.bucketize_plain(fields, dest, valid,
+                                                       n, cap))
+    kept = int(np.minimum(got[1][:n], cap).sum())
+    byt = N * (8 + (0 if valid is None else 1)) + kept * F * 16 + (n + 1) * 8
+    out["route_buckets"] = dict(
+        exact=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        wrapper_ms=call_ms,
+        plain_call_launches=plain_launches(
+            lambda: MS.bucketize_plain(fields, dest, valid, n, cap)),
+        shape=f"{N} rows x {F} fields, n={n} ({where})", **_bound(byt, 0))
+    log(f"[timing] route_buckets on {out['route_buckets']['shape']}: alone "
+        f"{ms:.4f} ms (bound {out['route_buckets']['bound_ms']:.4f}, bytes); "
+        f"the wrapper's call (one host sync) {call_ms:.3f} ms; "
+        f"bucketize_plain on the card {plain_ms:.3f} ms in "
+        f"{out['route_buckets']['plain_call_launches']} device kernels")
+
+    rec, is_seed, lens, n = mesh_call("seed_symmetrize", dev)
+    R = rec.shape[0]
+    ms = _events_ms(lambda: DS.seed_symmetrize(rec, is_seed, lens, n), reps)
+    _, plain_ms = timed(lambda: DS.seed_symmetrize_plain(rec, is_seed, lens,
+                                                         n), 3)
+    r = {}
+    _record(r, "the mesh path's records", "seed_symmetrize",
+            DS.seed_symmetrize(rec, is_seed, lens, n),
+            DS.seed_symmetrize_plain(rec, is_seed, lens, n))
+    byt = R * 64 + 2 * R * 9 + 2 * R * (64 + 1 + 8)
+    out["seed_symmetrize"] = dict(
+        r["seed_symmetrize"], ms=ms, plain_ms=plain_ms,
+        plain_call_launches=plain_launches(
+            lambda: DS.seed_symmetrize_plain(rec, is_seed, lens, n)),
+        shape=f"{R} records of one shard, n={n}", **_bound(byt, 0))
+    log(f"[timing] seed_symmetrize on {out['seed_symmetrize']['shape']}: "
+        f"alone {ms:.4f} ms (bound "
+        f"{out['seed_symmetrize']['bound_ms']:.4f}, bytes); plain on the "
+        f"card {plain_ms:.3f} ms in "
+        f"{out['seed_symmetrize']['plain_call_launches']} device kernels")
+
+    key = next(k for k in ("lookup_gate", "lookup_nogate")
+               if k in MESH_CALLS)
+    recv, ix, qm, _, max_occ = mesh_call(key, dev)
+    amask = DO.anchor_mask(qm, int(ix.rid.max()) + 1, dev)
+    M_ = min(recv[0].shape[0], DO.LOOKUP_ROWS)
+    h, pos, st_, qid = (x[:M_] for x in recv)
+    rows = torch.arange(M_, device=dev, dtype=torch.int64)
+    zeros = torch.zeros_like(rows)
+    lib = _build.kernels()
+    H = ix.h.shape[0]
+    ins = [t.data_ptr() for t in (rows, pos, h, st_, qid, zeros, amask,
+                                  ix.h, ix.rid, ix.posst, ix.bucket)]
+    stat, nb = E._anchor_stat(M_, dev)
+    cap = M_ * max_occ
+    buf = torch.empty((5, cap), dtype=torch.int64, device=dev)
+    launch = functools.partial(
+        E._anchor_launch, lib, ins, stat, buf.data_ptr(), M_, H, cap,
+        32 - E.directory_bits(H), max_occ,
+        torch.cuda.current_stream(dev).cuda_stream)
+    a_ms = _events_ms(launch, reps)
+    _, call_ms = timed(lambda: DO._lookup_anchor(recv, ix, amask, max_occ), 3)
+    _, plain_ms = timed(lambda: DO._lookup_plain(
+        recv, *ix.unpacked(), qm, max_occ), 3)
+    log(f"[timing] the mesh lookup ({key}, {recv[0].shape[0]} received "
+        f"minimizers, an index shard of {H} entries, max_occ {max_occ}): "
+        f"engine_anchor alone on {M_} of them {a_ms:.4f} ms; the lookup by "
+        f"engine_anchor {call_ms:.3f} ms; the plain lookup on the card "
+        f"{plain_ms:.3f} ms")
+    out["mesh_lookup"] = dict(engine_anchor_ms=a_ms, call_ms=call_ms,
+                              plain_ms=plain_ms)
+    return out
+
+
+def check_streams_launches(tag, launches):
+    """myers_align builds each sub-batch's streams with one myers_streams
+    launch, so a run launches it exactly as often as myers_fwd."""
+    if launches["myers_streams"] != launches["myers_fwd"]:
+        raise RuntimeError(f"{tag}: {launches['myers_streams']} myers_streams "
+                           f"launches for {launches['myers_fwd']} myers_fwd")
+    log(f"[route] {tag}: myers_streams launched {launches['myers_streams']} "
+        f"times, as myers_fwd")
 
 
 def myers_sweep(dev, rng, qs, ts, sizes=(640, 1280, 2560, 5120), chunk=640):
@@ -3774,7 +4251,13 @@ def main() -> int:
         mh_launches = phase_multihost_path(workdir)
         with watchdog(480, "the mesh phase"):
             mesh_launches, mesh_peak = phase_mesh_path(
-                dev, workdir, facts["sim"], facts["genome"])
+                dev, workdir, facts["sim"], facts["genome"], capture=True)
+        with watchdog(300, "the route phase"):
+            phase_route(dev)
+            route_times = route_timing(dev)
+        # the recorded calls are replayed: let them go
+        MESH_CALLS.clear()
+        torch.cuda.empty_cache()
         with watchdog(300, "the mesh_groups phase"):
             card0 = torch.device("cuda", torch.cuda.current_device())
             phase_mesh_groups(card0, workdir)
@@ -3790,12 +4273,20 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     path_launches = {FAST_PATH: fast_launches, EXT_PATH: ext_launches,
-                     HPC_PATH: hpc_launches}
+                     HPC_PATH: hpc_launches, MESH_PATH: mesh_launches}
+    for tag, ls in (("main_path", launches), ("ext_path", ext_launches),
+                    ("hifi_path", hifi_launches), ("mesh_path", mesh_launches),
+                    *((f"multihost_path host {k}", h)
+                      for k, h in enumerate(mh_launches)),
+                    *((("mesh_cards", cards_launches),)
+                      if cards_launches is not None else ())):
+        check_streams_launches(tag, ls)
     for k, path in KERNEL_PATH.items():
         launches[k] = path_launches[path][k]
     with watchdog(420, "the timing phase"):
         timing = phase_timing(dev, facts["retry_pairs"], ext_pairs,
                               ext_mean_mn, batch, sketch_batch)
+    timing.update(route_times)
     kernels = []
     for name, info in KERNEL_INFO.items():
         t = timing[name]
@@ -3803,7 +4294,8 @@ def main() -> int:
             name=name, route="cuda", source=info["source"],
             replaces=info["replaces"], launches=launches[name],
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
-            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t.get("library_ms"),
             exact=t["exact"], kernel_ms=t["ms"], shape=t["shape"],
             path=KERNEL_PATH.get(name, "task = all"),
             launches_hifi=hifi_launches[name],

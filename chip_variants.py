@@ -10,6 +10,7 @@
     python3 chip_variants.py --kernel engine_anchor A.cu [B.cu ...]
     python3 chip_variants.py --turns PARENT_DIR
     python3 chip_variants.py --match-turns PARENT_DIR
+    python3 chip_variants.py --mesh-memory PARENT_DIR
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -105,6 +106,14 @@ engine/host_fill and engine/match (wall and CPU time over the call, the
 first five batches, the median and the longest) and the caching
 allocator's counters over the call (cudaMalloc and cudaFree calls,
 retries); the third under torch.profiler, its device time by kernel name.
+
+--mesh-memory PARENT_DIR: the mesh path's device memory by phase, the earlier
+tree in PARENT_DIR then this checkout, a process each (--mesh-memory-turn
+DIR): each tree's own chip_smoke main path, then its mesh path (use_mesh =
+8, one card) with the peak allocated memory read and reset around every
+Mesh.for_each_card phase and around dist_overlap's build_index (and
+index_shards, where the tree has it); one line a phase (MiB allocated
+before, peak, after), then the mesh path's peak.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -771,6 +780,64 @@ def main_match_turns(parent) -> int:
     return 0
 
 
+def mesh_memory_turn(tree) -> int:
+    """--mesh-memory-turn DIR: one tree of --mesh-memory."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+    import chip_smoke as c
+    from nextdenovo_tpu_torch.parallel import dist_overlap as DO
+    from nextdenovo_tpu_torch.parallel import mesh as M
+    if not M.__file__.startswith(tree):
+        raise RuntimeError(f"imported {M.__file__}, not the package in {tree}")
+    peaks = []
+
+    def measured(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            peaks.append((name(a), before, torch.cuda.max_memory_allocated(),
+                          torch.cuda.memory_allocated()))
+            return out
+        return run
+
+    each = M.Mesh.for_each_card
+    M.Mesh.for_each_card = measured(lambda a: a[1], each)
+    for name in ("build_index", "index_shards"):
+        if hasattr(DO, name):
+            setattr(DO, name, measured(lambda a, n=name: n,
+                                       getattr(DO, name)))
+    d = torch.device("cuda")
+    c.phase_env()
+    c.phase_build()
+    w = tempfile.mkdtemp(prefix="chip_variants_mem_")
+    _, f = c.phase_main_path(d, c.GENOME_SIZE, w)
+    _, peak = c.phase_mesh_path(d, w, f["sim"], f["genome"])
+    mib = lambda x: x / 2**20
+    for name, before, top, after in peaks:
+        log(f"[mesh-memory] {tree}: {name:<20} before {mib(before):8.1f} MiB, "
+            f"peak {mib(top):8.1f} MiB, after {mib(after):8.1f} MiB")
+    log(f"[mesh-memory] {tree}: the mesh path's peak {mib(peak):.1f} MiB "
+        f"(since the last phase's reset)")
+    return 0
+
+
+def main_mesh_memory(parent) -> int:
+    """--mesh-memory PARENT: mesh_memory_turn of PARENT, then of this
+    checkout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    for tree in (os.path.abspath(parent), here):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--mesh-memory-turn", tree], cwd=here)
+        if r.returncode:
+            return r.returncode
+    return 0
+
+
 def main_turns(parent) -> int:
     """--turns PARENT: this checkout against the one in PARENT (an earlier
     tree, unpacked with git archive), in turns parent, this, this, parent:
@@ -848,6 +915,10 @@ def main(argv) -> int:
         return match_turn(*argv[1:3])
     if argv[:1] == ["--match-turns"]:
         return main_match_turns(argv[1])
+    if argv[:1] == ["--mesh-memory-turn"]:
+        return mesh_memory_turn(argv[1])
+    if argv[:1] == ["--mesh-memory"]:
+        return main_mesh_memory(argv[1])
     do_lat = "--latency" in argv
     srcs = [a for a in argv if a != "--latency"]
     import chip_smoke as c

@@ -40,7 +40,8 @@ GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
             "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0,
             "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0,
-            "sketch_select": 0, "sketch_emit": 0, "hpc_compress": 0}
+            "sketch_select": 0, "sketch_emit": 0, "hpc_compress": 0,
+            "myers_streams": 0, "route_buckets": 0, "seed_symmetrize": 0}
 CARD_LAUNCHES = {}
 
 _lock = threading.Lock()
@@ -214,6 +215,16 @@ def _load_kernels() -> ctypes.CDLL:
     lib.ndt_sketch_emit.argtypes = [vp] * 6 + [ci, ci, ll, vp]
     lib.ndt_hpc_compress.restype = ci
     lib.ndt_hpc_compress.argtypes = [vp, ll] + [vp] * 4 + [ci, ci, vp]
+    lib.ndt_myers_streams.restype = ci
+    lib.ndt_myers_streams.argtypes = [vp] * 10 + [ci, ci, ci, vp]
+    lib.ndt_route_blocks.restype = ci
+    lib.ndt_route_blocks.argtypes = [ci]
+    lib.ndt_route_buckets.restype = ci
+    lib.ndt_route_buckets.argtypes = [ctypes.POINTER(vp), ci, vp, vp, ci, ci,
+                                      ci, vp, ll, vp, vp, ci, vp]
+    lib.ndt_seed_symmetrize.restype = ci
+    lib.ndt_seed_symmetrize.argtypes = [vp, vp, vp, ll, ll, ci, vp, vp, vp,
+                                        vp]
     lib.ndt_error_string.restype = ctypes.c_char_p
     lib.ndt_error_string.argtypes = [ci]
     return lib

@@ -23,19 +23,29 @@ bucket takes the first `cap` selected rows in the reference's order and
 counts the rest as drops, so the records, their order per shard and the
 overflow count equal the JAX package's, whichever card finishes first: the
 counts are summed in shard order after each join.
+
+On the card the routing is the route_buckets kernel (mesh.bucketize: one
+launch and one host sync a bucketing) and the lookup the single-device
+engine's engine_anchor kernel, one launch every LOOKUP_ROWS received
+minimizers, each minimizer a query row of its own, against the shard's
+block of the index with its bucket directory (index_shards, made once a
+mesh_overlaps call).
 """
 from __future__ import annotations
+
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
 
 from ..io.seqstore import SeqStore
 from ..ops.sketch import sketch
-from ..overlap.engine import REC_FIELDS, _vote_emit, build_index
+from ..overlap.engine import (POS_MASK, REC_FIELDS, STRAND_BIT, _vote_emit,
+                              anchor_directory, build_index, engine_anchor)
 from ..overlap.records import OvlBlock
 from ..utils import span
-from .mesh import (Mesh, _np, all_to_all, bucketize, partition_index, psum,
-                   replicate, shard_rows)
+from .mesh import (Mesh, _np, all_to_all, bucket_drops, bucketize,
+                   partition_index, psum, replicate, shard_rows)
 
 # positions of one sketch launch (rows x the batch's longest row): the
 # sketch is row-local, so a shard's rows are sketched in batches whose
@@ -70,10 +80,103 @@ def _sketch_shard(codes: torch.Tensor, lens: np.ndarray, k: int, w: int):
     return tuple(torch.cat([p[i] for p in parts]) for i in range(4))
 
 
-def _lookup(recv, ih, irid, ipos, istr, qm, max_occ: int):
+class IndexShard(NamedTuple):
+    """One shard's block of the hash-partitioned index, on its card, as
+    engine_anchor reads it: the hashes (sorted, int64), the rids (int32),
+    position | strand << STRAND_BIT (int32; positions stay under 2^30:
+    reads cap at 1 Mb) and the bucket directory of the hashes."""
+    h: torch.Tensor
+    rid: torch.Tensor
+    posst: torch.Tensor
+    bucket: torch.Tensor
+
+    def unpacked(self):
+        """(h, rid, pos, strand), int64 each: the plain lookup's arrays."""
+        p = self.posst.to(torch.int64)
+        return self.h, self.rid.to(torch.int64), p & POS_MASK, p >> STRAND_BIT
+
+
+class ShardedIndex(NamedTuple):
+    """index_shards' result: a shard's IndexShard at its number, and one
+    past the largest rid of the index (the length engine_anchor's qmask
+    needs)."""
+    shards: List[IndexShard]
+    rid_end: int
+
+
+def index_shards(mesh: Mesh, idx_h, idx_rid, idx_pos, idx_strand
+                 ) -> ShardedIndex:
+    """The (n_shards * H,) index arrays of distributed_overlap_step, cut
+    into the shards' blocks on their cards, with what engine_anchor reads
+    made once: mesh_overlaps makes it before the autocap's first try, so a
+    retry does not make it again."""
+    posst = _np(idx_pos).astype(np.int32) \
+        | (_np(idx_strand).astype(np.int32) << STRAND_BIT)
+    rids = shard_rows(mesh, _np(idx_rid).astype(np.int32))
+    shards = [IndexShard(h, rid, ps, anchor_directory(h)) for h, rid, ps in
+              zip(shard_rows(mesh, idx_h, torch.int64), rids,
+                  shard_rows(mesh, posst))]
+    rid_end = max((int(r.max()) + 1 for r in rids if r.numel()), default=0)
+    return ShardedIndex(shards, rid_end)
+
+
+def anchor_mask(qm, rid_end: int, dev) -> torch.Tensor:
+    """engine_anchor's qmask (int8) for a lookup with the pair-once mask qm
+    (None: no gate, zeros): qm > 0, read as the plain lookup reads it at
+    clamp(t_rid, 0, len(qm) - 1), so past its end its last entry, for every
+    rid below rid_end."""
+    n = max(rid_end, 1)
+    if qm is None:
+        return torch.zeros(n, dtype=torch.int8, device=dev)
+    m = (qm > 0).to(torch.int8)
+    if m.shape[0] < n:
+        m = torch.cat([m, m[-1:].expand(n - m.shape[0])])
+    return m.contiguous()
+
+
+def _lookup(recv, ix: IndexShard, qm, amask, max_occ: int):
     """Anchors of the minimizers a shard received, in the reference's flat
     (minimizer, occurrence) order, taken ones only, as _vote_emit takes
-    them: (qid, t_rid, t_pos, rel, qpos)."""
+    them: (qid, t_rid, t_pos, rel, qpos).  The first max_occ entries of each
+    hash, less pad rows (rid < 0), self hits and the pair-once gate of qm
+    (None: off).
+
+    CPU tensors run the plain version; CUDA tensors launch engine_anchor
+    (csrc/engine.cu) once every LOOKUP_ROWS minimizers, with its qmask amask
+    (anchor_mask of qm)."""
+    if ix.h.device.type == "cpu":
+        return _lookup_plain(recv, *ix.unpacked(), qm, max_occ)
+    return _lookup_anchor(recv, ix, amask, max_occ)
+
+
+def _lookup_anchor(recv, ix: IndexShard, amask, max_occ: int):
+    """The lookup through engine_anchor (on any device; on the CPU its plain
+    version): each received minimizer a query row of its own (qm_rid = its
+    number, q_rid_base = its qid, q_pos_base = 0)."""
+    h_r, pos_r, str_r, qid_r = recv
+    out = []
+    for a in range(0, h_r.shape[0], LOOKUP_ROWS):
+        h, pos, st, qid = (x[a : a + LOOKUP_ROWS]
+                           for x in (h_r, pos_r, str_r, qid_r))
+        rows = torch.arange(h.shape[0], device=h.device, dtype=torch.int64)
+        got = engine_anchor(rows, pos, h, st, qid, torch.zeros_like(rows),
+                            amask, ix.h, ix.rid, ix.posst, max_occ,
+                            bucket=ix.bucket)
+        # the anchors are views of rows of M * max_occ: with chunks to
+        # follow, copy them out (and let go of the views) before the next
+        # launch, so that one such buffer is held at a time
+        if a + LOOKUP_ROWS < h_r.shape[0]:
+            got = tuple(x.clone() for x in got)
+        out.append(got)
+    if not out:
+        e = torch.zeros(0, dtype=torch.int64, device=ix.h.device)
+        return (e,) * 5
+    return tuple(torch.cat([o[i] for o in out]) for i in range(5))
+
+
+def _lookup_plain(recv, ih, irid, ipos, istr, qm, max_occ: int):
+    """Plain version of _lookup (any device): two torch.searchsorted and an
+    (M, max_occ) expansion per LOOKUP_ROWS minimizers."""
     h_r, pos_r, str_r, qid_r = recv
     H = ih.shape[0]
     occ = torch.arange(max_occ, device=ih.device)[None, :]
@@ -140,7 +243,7 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
                              idx_strand, qmask=None, *, k: int, w: int,
                              cap_mini: int, max_occ: int, diag_shift: int,
                              cap_out: int, mesh: Mesh, min_cnt: int = 4, min_span: int = 500,
-                             top_k: int = 1, qid0: int = 0):
+                             top_k: int = 1, qid0: int = 0, index=None):
     """One overlap step over the mesh's shards.
 
     codes:    (n_shards*B, L) integer base codes, shard s owning rows
@@ -157,6 +260,7 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
     qmask:    optional (n_reads,) int8, 1 marks reads of the global query
               set: the pair-once gate of engine._match_block.  None
               disables it (mapping workloads with disjoint id spaces).
+    index:    index_shards of the idx_* arrays, made here when not given
     Returns (records, n_ovl, n_over): records[s] is shard s's dict of
     compacted record tensors (REC_FIELDS), in the reference's order;
     n_ovl the records over all shards; n_over the rows dropped anywhere
@@ -167,11 +271,14 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
     codes = shard_rows(mesh, codes)
     lens_np = _np(lens).astype(np.int64).reshape(n, -1)
     rid_base = shard_rows(mesh, rid_base, torch.int64)
-    ih, irid, ipos, istr = (shard_rows(mesh, x, torch.int64)
-                            for x in (idx_h, idx_rid, idx_pos, idx_strand))
+    if index is None:
+        index = index_shards(mesh, idx_h, idx_rid, idx_pos, idx_strand)
     # an all-zeros qmask disables the gate
     qm = replicate(mesh, qmask) if qmask is not None \
         and bool((_np(qmask) > 0).any()) else None
+    amask = {dev: anchor_mask(None if qm is None else qm[dev],
+                              index.rid_end, dev)
+             for dev in dict.fromkeys(mesh.devices) if dev.type == "cuda"}
     B_local = codes[0].shape[0]
 
     # ---- sketch each source shard, route minimizers to index shards ------
@@ -188,10 +295,9 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
             qid = rid_base[s][rid]
             owner = ((h >> shift_bits) % n if n > 1
                      else torch.zeros_like(h))
-            buckets, drop = bucketize((h, pos, strand, qid), owner,
-                                      torch.ones_like(h, dtype=torch.bool),
-                                      n, cap_route)
-            out.append((buckets, over + drop))
+            buckets, counts = bucketize((h, pos, strand, qid), owner, None,
+                                        n, cap_route)
+            out.append((buckets, over + bucket_drops(counts, cap_route)))
         return out
 
     sent = mesh.for_each_card("mesh/sketch_route", sketch_route)
@@ -209,18 +315,16 @@ def distributed_overlap_step(codes, lens, rid_base, idx_h, idx_rid, idx_pos,
         for d in shards:
             got = tuple(torch.cat([b[i] for b in recv[d]]) for i in range(4))
             recv[d] = None
-            anchors = _lookup(got, ih[d], irid[d], ipos[d], istr[d],
-                              None if qm is None else qm[dev], max_occ)
+            anchors = _lookup(got, index.shards[d],
+                              None if qm is None else qm[dev],
+                              amask.get(dev), max_occ)
             if n == 1:
                 out.append(([anchors], 0))
                 continue
             dest = torch.div(anchors[0] - qid0, B_local, rounding_mode="floor")
             # anchors routed out of the mesh are drops, not silent losses
-            outside = int(((dest < 0) | (dest >= n)).sum())
-            buckets, drop = bucketize(anchors, dest,
-                                      torch.ones_like(dest, dtype=torch.bool),
-                                      n, cap_back)
-            out.append((buckets, outside + drop))
+            buckets, counts = bucketize(anchors, dest, None, n, cap_back)
+            out.append((buckets, bucket_drops(counts, cap_back)))
         return out
 
     back = mesh.for_each_card("mesh/lookup_route", lookup_route)
@@ -307,6 +411,7 @@ def mesh_overlaps(index_store: SeqStore, index_rids, queries: SeqStore,
             sp.attrs["card_entries"] = [
                 int(per[r.start:r.stop].sum())
                 for r in map(mesh.shards_of, range(len(mesh.devices)))]
+        index = index_shards(mesh, ih, irid, ipos, istr)
     idx = None
     codes, lens, rid_base, L, B = _pow2_rows(queries, n)
     cap_mini = 2 * (B // n) * L // max(1, w) + 1024
@@ -314,7 +419,7 @@ def mesh_overlaps(index_store: SeqStore, index_rids, queries: SeqStore,
         codes, lens, rid_base + qid0, ih, irid, ipos, istr, qmask, k=k, w=w,
         cap_mini=cap_mini, max_occ=max_occ, diag_shift=8,
         cap_out=max(4096, 512 * (B // n)), mesh=mesh, min_cnt=min_cnt,
-        min_span=min_span, top_k=top_k, qid0=qid0)
+        min_span=min_span, top_k=top_k, qid0=qid0, index=index)
     return out[0]
 
 

@@ -14,16 +14,79 @@ received them: the JAX package's multi-operand sort keeps that order on
 the CPU, and the port's sorts are stable passes (tests/test_torch_mesh.py
 holds such a tie).  Each card of the mesh runs its shards on a host thread
 of its own (parallel/mesh.Mesh.for_each_card).
+
+On the card the route is two hand-written kernels (csrc/route.cu):
+seed_symmetrize makes both views of every record in one pass, and
+route_buckets (mesh.bucketize) routes them in one launch and one host sync.
+The seven-key sort stays _stable_lexsort, seven stable torch.sort passes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .. import _build
+from ..device import check_tensor
 from ..overlap.engine import _stable_lexsort
 from ..overlap.records import OvlBlock
 from ..overlap.sort import SortResult, _filter_sorted_native, _rows_to_block
 from .mesh import Mesh, all_to_all, bucketize, psum, replicate, shard_rows
+
+
+def seed_symmetrize_plain(rec, is_seed, lens, n_shards: int):
+    """Plain version of seed_symmetrize (any device)."""
+    n_reads = lens.shape[0]
+    q, rev, qs, qe = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
+    t, ts, te, match = rec[:, 4], rec[:, 5], rec[:, 6], rec[:, 7]
+    keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
+    sq = torch.clamp(q, 0, n_reads - 1)
+    st_ = torch.clamp(t, 0, n_reads - 1)
+    # the two symmetrized views (overlap.sort.symmetrize semantics, ends
+    # made inclusive)
+    v_q = keep & is_seed[sq] & (lens[sq] >= qe)
+    v_t = keep & is_seed[st_] & (lens[st_] >= te)
+    cols = torch.stack([torch.cat([a, b]) for a, b in (
+        (q, t), (rev, rev), (qs, ts), (qe - 1, te - 1),
+        (t, q), (ts, qs), (te - 1, qe - 1), (match, match))])
+    return cols, torch.cat([v_q, v_t]), cols[0] % n_shards
+
+
+def seed_symmetrize(rec, is_seed, lens, n_shards: int):
+    """The seed-keyed views of a shard's raw records (rec (R, 8) int64:
+    qname, rev, qs, qe, tname, ts, te, match, exclusive ends), as
+    distributed_seed_sort_step routes them: the records whose two reads
+    differ and whose spans are both at least 500, each seen from its query
+    (rows 0..R-1) and from its target (rows R..2R-1), ends inclusive, kept
+    where the seed side is a seed (is_seed (n_reads,) bool) and the span
+    ends inside it (lens (n_reads,) int64; ids clamped into range).
+    Returns (cols (8, 2R) int64, valid (2R,) bool, dest (2R,) int64 = the
+    seed % n_shards, floor-mod).
+
+    CPU tensors run the plain version; CUDA tensors launch the
+    seed_symmetrize kernel (csrc/route.cu) once."""
+    if rec.device.type == "cpu":
+        return seed_symmetrize_plain(rec, is_seed, lens, n_shards)
+    dev = rec.device
+    R, n_reads = rec.shape[0], lens.shape[0]
+    check_tensor("rec", rec, (R, 8), torch.int64, dev)
+    check_tensor("is_seed", is_seed, (n_reads,), torch.bool, dev)
+    check_tensor("lens", lens, (n_reads,), torch.int64, dev)
+    if n_shards < 1 or n_reads < 1:
+        raise ValueError(f"seed_symmetrize: {n_shards} shards, {n_reads} "
+                         f"reads")
+    cols = torch.empty((8, 2 * R), dtype=torch.int64, device=dev)
+    valid = torch.empty(2 * R, dtype=torch.bool, device=dev)
+    dest = torch.empty(2 * R, dtype=torch.int64, device=dev)
+    if R:
+        lib = _build.kernels()
+        with torch.cuda.device(dev):
+            rc = lib.ndt_seed_symmetrize(
+                rec.data_ptr(), is_seed.data_ptr(), lens.data_ptr(), R,
+                n_reads, n_shards, cols.data_ptr(), valid.data_ptr(),
+                dest.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check_launch("seed_symmetrize", rc)
+        _build.count_launch("seed_symmetrize", dev)
+    return cols, valid, dest
 
 
 def distributed_seed_sort_step(rec8, is_seed, lens, *, cap_route: int,
@@ -39,28 +102,16 @@ def distributed_seed_sort_step(rec8, is_seed, lens, *, cap_route: int,
     rec8 = shard_rows(mesh, rec8, torch.int64)
     is_seed = replicate(mesh, np.asarray(is_seed, bool))
     lens = replicate(mesh, np.asarray(lens, np.int64))
-    n_reads = len(lens[mesh.device])
 
     def route(dev, shards):
         out = []
         for s in shards:
-            rec = rec8[s]
-            q, rev, qs, qe = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
-            t, ts, te, match = rec[:, 4], rec[:, 5], rec[:, 6], rec[:, 7]
-            keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
-            sq = torch.clamp(q, 0, n_reads - 1)
-            st_ = torch.clamp(t, 0, n_reads - 1)
-            # the two symmetrized views (overlap.sort.symmetrize semantics,
-            # ends made inclusive)
-            v_q = keep & is_seed[dev][sq] & (lens[dev][sq] >= qe)
-            v_t = keep & is_seed[dev][st_] & (lens[dev][st_] >= te)
-            cols = [torch.cat([a, b]) for a, b in (
-                (q, t), (rev, rev), (qs, ts), (qe - 1, te - 1),
-                (t, q), (ts, qs), (te - 1, qe - 1), (match, match))]
-            valid = torch.cat([v_q, v_t])
-            buckets, _ = bucketize(cols, cols[0] % n_shards, valid, n_shards,
-                                   cap_route)
-            out.append((buckets, int(valid.sum())))
+            cols, valid, dest = seed_symmetrize(rec8[s], is_seed[dev],
+                                                lens[dev], n_shards)
+            buckets, counts = bucketize(cols.unbind(0), dest, valid,
+                                        n_shards, cap_route)
+            # every valid row's seed % n_shards lies in the mesh
+            out.append((buckets, int(counts.sum())))
         return out
 
     sent = mesh.for_each_card("mesh/sort_route", route)

@@ -21,13 +21,15 @@ the shards then form groups, each on its own thread, on one device.
 Buckets hold compacted rows: `bucketize` hands destination d, for each
 source in order, the first `cap` selected rows (the rows the reference's
 `jnp.nonzero(size=cap)` keeps) and counts the rest as drops, so no array of
-the reference's padded caps is built.  Results equal the JAX package's,
+the reference's padded caps is built.  On the card it is one launch of the
+route_buckets kernel and one host sync.  Results equal the JAX package's,
 shard for shard, on any number of cards.
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import ctypes
 import logging
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Sequence, Tuple
@@ -35,10 +37,16 @@ from typing import Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import _build
+from ..device import check_tensor, resolve_device
 from ..utils import span
 
 AXIS = "shard"
+# what one launch of the route_buckets kernel (csrc/route.cu) takes
+ROUTE_THREADS = 256
+ROUTE_MAX_FIELDS = 8
+ROUTE_MAX_DEST = 512
+ROUTE_MAX_ROWS = 2**31 - 1
 
 log = logging.getLogger("nextdenovo_tpu_torch")
 
@@ -187,19 +195,93 @@ def psum(values) -> int:
     return int(sum(int(v) for v in values))
 
 
-def bucketize(fields, dest: torch.Tensor, valid: torch.Tensor,
-              n_shards: int, cap: int):
-    """Route rows to destinations: bucket d holds, in row order, the first
-    `cap` rows with valid & (dest == d), one tensor per field.  Returns
-    (buckets, dropped-row count): rows beyond a bucket's cap are counted,
-    never silently lost."""
-    out, n_drop = [], 0
+def bucketize_plain(fields, dest: torch.Tensor, valid, n_shards: int,
+                    cap: int):
+    """Plain version of bucketize (any device): one torch.nonzero a
+    destination."""
+    sel = torch.ones_like(dest, dtype=torch.bool) if valid is None else valid
+    out = []
+    counts = np.zeros(n_shards + 1, np.int64)
     for d in range(n_shards):
-        idx = torch.nonzero(valid & (dest == d))[:, 0]
-        n_drop += max(int(idx.shape[0]) - cap, 0)
+        idx = torch.nonzero(sel & (dest == d))[:, 0]
+        counts[d] = idx.shape[0]
         idx = idx[:cap]
         out.append(tuple(f[idx] for f in fields))
-    return out, n_drop
+    counts[n_shards] = int((sel & ((dest < 0) | (dest >= n_shards))).sum())
+    return out, counts
+
+
+def bucketize(fields, dest: torch.Tensor, valid, n_shards: int, cap: int):
+    """Route rows to destinations: bucket d holds, in row order, the first
+    `cap` rows with valid & (dest == d), one tensor per field (fields: up to
+    8 (N,) int64 tensors; dest (N,) int64; valid (N,) bool, or None for
+    every row).  Returns (buckets, counts): counts (n_shards + 1,) int64 on
+    the host, counts[d] the valid rows bound for d before the cap (rows
+    beyond it are counted, never silently lost), counts[n_shards] the valid
+    rows bound outside [0, n_shards).
+
+    CPU tensors run the plain version; CUDA tensors launch the
+    route_buckets kernel (csrc/route.cu) once, read the counts (one host
+    sync) and copy each bucket out of the kernel's output."""
+    if dest.device.type == "cpu":
+        return bucketize_plain(fields, dest, valid, n_shards, cap)
+    dev = dest.device
+    N, F = dest.shape[0], len(fields)
+    check_tensor("dest", dest, (N,), torch.int64, dev)
+    for i, f in enumerate(fields):
+        check_tensor(f"fields[{i}]", f, (N,), torch.int64, dev)
+    if valid is not None:
+        check_tensor("valid", valid, (N,), torch.bool, dev)
+    if not 1 <= F <= ROUTE_MAX_FIELDS or not 1 <= n_shards <= ROUTE_MAX_DEST:
+        raise ValueError(f"route_buckets: {F} fields (1..{ROUTE_MAX_FIELDS})"
+                         f" to {n_shards} destinations (1..{ROUTE_MAX_DEST})")
+    if N > ROUTE_MAX_ROWS:
+        raise ValueError(f"route_buckets: {N} rows (at most "
+                         f"{ROUTE_MAX_ROWS})")
+    if N == 0:
+        empty = tuple(f[:0] for f in fields)
+        return [empty] * n_shards, np.zeros(n_shards + 1, np.int64)
+    out, counts = _route_launch(fields, dest, valid, n_shards, cap)
+    _build.count_launch("route_buckets", dev)
+    counts = counts.cpu().numpy()
+    kept = np.minimum(counts[:n_shards], cap)
+    starts = np.concatenate([[0], np.cumsum(kept)])
+    # a bucket is a copy of its rows: views would hold the whole output
+    # until every destination had taken its bucket
+    return [out[:, starts[d]:starts[d + 1]].clone().unbind(0)
+            for d in range(n_shards)], counts
+
+
+def _route_launch(fields, dest, valid, n_shards: int, cap: int):
+    """One launch of the route_buckets kernel on checked inputs of N > 0
+    rows, no host sync: (out (F, N) int64, the buckets one after the other,
+    counts (n_shards + 1,) int64 on the device)."""
+    dev, N, F = dest.device, dest.shape[0], len(fields)
+    lib = _build.kernels()
+    out = torch.empty((F, N), dtype=torch.int64, device=dev)
+    counts = torch.empty(n_shards + 1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        blocks = lib.ndt_route_blocks(n_shards)
+        if blocks < 0:
+            _build.check_launch("route_buckets", -blocks)
+        blocks = min(blocks, -(-N // ROUTE_THREADS))
+        scratch = torch.empty(1 + blocks * (n_shards + 1), dtype=torch.int32,
+                              device=dev)
+        ptrs = (ctypes.c_void_p * F)(*[f.data_ptr() for f in fields])
+        rc = lib.ndt_route_buckets(
+            ptrs, F, dest.data_ptr(),
+            None if valid is None else valid.data_ptr(), N, n_shards,
+            min(cap, N), out.data_ptr(), N, counts.data_ptr(),
+            scratch.data_ptr(), blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check_launch("route_buckets", rc)
+    return out, counts
+
+
+def bucket_drops(counts: np.ndarray, cap: int) -> int:
+    """The valid rows bucketize did not hand on: those past a bucket's cap
+    and those bound outside the mesh."""
+    return int(np.maximum(counts[:-1] - cap, 0).sum() + counts[-1])
 
 
 def _np(x) -> np.ndarray:

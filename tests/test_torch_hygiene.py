@@ -123,6 +123,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.ops import align, extend, myers, sketch
     from nextdenovo_tpu_torch.overlap import engine
+    from nextdenovo_tpu_torch.parallel import dist_overlap, dist_sort, mesh
     monkeypatch.setattr(_build, "_kernels", None)
     monkeypatch.setattr(_build, "KERNEL_LIB",
                         os.path.join(str(_build.BUILD_DIR), "absent.so"))
@@ -136,7 +137,8 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     assert sorted(_build.LAUNCHES) == sorted(
         ["myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
          "wave_fast_fwd", "wave_fast_tb", "engine_anchor", "vote_corridor",
-         "chain_emit", "sketch_select", "sketch_emit", "hpc_compress"])
+         "chain_emit", "sketch_select", "sketch_emit", "hpc_compress",
+         "myers_streams", "route_buckets", "seed_symmetrize"])
     for mod, name in ((myers, "myers_fwd_plain"), (myers, "myers_tb_plain"),
                       (align, "wave_fwd_plain"), (align, "wave_tb_plain"),
                       (align, "wave_fast_fwd_plain"),
@@ -146,7 +148,11 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
                       (engine, "vote_corridor_plain"),
                       (engine, "chain_emit_plain"),
                       (sketch, "sketch_plain"), (sketch, "sketch_wide_plain"),
-                      (sketch, "hpc_compress_plain")):
+                      (sketch, "hpc_compress_plain"),
+                      (myers, "build_streams_plain"),
+                      (mesh, "bucketize_plain"),
+                      (dist_sort, "seed_symmetrize_plain"),
+                      (dist_overlap, "_lookup_plain")):
         monkeypatch.setattr(mod, name,
                             lambda *a, **k: called.append(1))
     meta = lambda *s: torch.empty(s, dtype=torch.int32, device="meta")
@@ -191,6 +197,20 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
         sketch.sketch_wide(codes8, meta(2), k=51, w=51, cap=64, hpc=True)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         sketch.hpc_compress(codes8, meta(2))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        myers.build_streams(meta8(40), meta8(40), m64(2), m64(2), meta(2),
+                            meta(2), meta(2), nw=8, n_pad=9)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mesh.bucketize((m64(6), m64(6)), m64(6), None, 2, 4)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dist_sort.seed_symmetrize(m64(3, 8),
+                                  torch.empty(5, dtype=torch.bool,
+                                              device="meta"), m64(5), 2)
+    ix = dist_overlap.IndexShard(m64(5), meta(5), meta(5), meta(2))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        dist_overlap._lookup((m64(6),) * 4, ix, None,
+                             torch.empty(9, dtype=torch.int8, device="meta"),
+                             16)
     assert not called
     assert all(v == 0 for v in _build.LAUNCHES.values())
 
