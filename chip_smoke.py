@@ -57,17 +57,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              that the vote would not make (engine_chain_sets);
              vote_corridor_kernel and engine_anchor_kernel with no stack
              frame in `nvcc -Xptxas -v`
-  sketch     the minimizer sketch's three kernels (sketch_select,
-             sketch_emit, hpc_compress) against their plain versions on the
-             card, exact in every field, n and n_all: edge rows (length 0,
-             shorter than w + k - 1, N codes, homopolymer runs, a tandem
-             repeat, (AT)* palindromes, lengths past a tile) at k in {1, 15,
-             17, 31, 32, 51, 127} x w in {1, 5, 17, 51}; column slices of a
-             wider buffer with a truncating cap, own gates, and hpc with
-             int64 lengths; one 16-row batch of the main path's stage 01;
-             the HiFi batch's 32 longest chunk rows at k = w = 51, raw and
-             hpc; a mesh-sized launch of 128 x 20000 positions through a
-             32768-column buffer; at most one host sync a sketch call
+  sketch     the minimizer sketch's two kernels (sketch_minimizers,
+             hpc_compress) against their plain versions on the card, exact
+             in every field, n and n_all: edge rows (length 0, shorter than
+             w + k - 1, N codes, homopolymer runs, a tandem repeat, (AT)*
+             palindromes, lengths past a tile) at k in {1, 15, 17, 31, 32,
+             51, 127} x w in {1, 5, 17, 51}, at k = 16, 47, 48, 128 and 143
+             and at w = 1101 and 2048 (past a whole tile); column slices of
+             a wider buffer with a truncating cap, own gates, and hpc with
+             int64 lengths; one 16-row query batch and one 32-row index
+             batch of the main path's stage 01; the HiFi batch's 32 longest
+             chunk rows at k = w = 51, raw and hpc; a mesh-sized launch of
+             128 x 20000 positions through a 32768-column buffer (2560
+             tiles); at most one host sync a sketch call
   overlaps   find_overlaps on fixed batches of reads gives identical
              records on the card (the engine kernels launched) and on the
              CPU: ONT reads at k = 17, w = 10; HiFi reads (one longer than
@@ -106,7 +108,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              peak memory reset just before; checks the markers, that
              raw.ovl and sorted.ovl equal main_path's and bl.json does once
              parsed, a launch of myers_fwd in each of stages 03, 04 and 06,
-             of sketch_select and sketch_emit in stage 01,
+             of sketch_minimizers in stage 01,
              and the main path's limits on the corrected reads and contigs;
              prints the stage walls, the launches by stage, the peak memory
              and how many corrected reads are byte-equal to main_path's
@@ -160,8 +162,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              the genome), and the contigs' 31-mer identity and total; then
              build_index of the same reads at k = w = 51, raw and hpc, on
              the card: wall (ended by a synchronise), entries, peak memory,
-             the hpc build's launches (hpc_compress, sketch_select and
-             sketch_emit each at least once)
+             the hpc build's launches (hpc_compress and sketch_minimizers
+             each at least once)
   timing     each kernel at its path's shape against its plain version
              (exact equality again), with the least time the card could
              take for the same work; the Myers kernels also at 640, 1280,
@@ -185,11 +187,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              into its steps; one whole _match_block call with the kernels
              against the same call with the plain versions on the card, the
              host syncs of one call (counted) and a host sync's cost; the
-             sketch kernels at the main path's batch and the HiFi batch,
-             each alone (launches only) and as a whole wrapper call, beside
-             the plain versions' select, emit and whole call on the card
-             and the plain call's device kernels (torch.profiler), and
-             hpc_compress on the HiFi batch's hpc rows
+             sketch kernel at the main path's query and index batches and
+             the HiFi batch, alone (its memset and launch) and as a whole
+             wrapper call, beside the plain versions' select, emit and
+             whole call on the card, the plain call's device kernels
+             (torch.profiler) and torch.nonzero; its registers, spills and
+             SASS instructions; and hpc_compress on the HiFi batch's hpc
+             rows
 
 The kernel and timing phases run under a watchdog: a kernel that hangs
 ends the run with exit code 3 instead of blocking it.
@@ -201,8 +205,9 @@ task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run, hpc_compress's from the HiFi reads'
 hpc index build, route_buckets' and seed_symmetrize's from the
 use_mesh = 8 run; `library_ms` is one PyTorch call's time on the same
-inputs where one computes the kernel's function (torch.nonzero beside
-sketch_emit), else null; `launches_hifi` holds each kernel's
+inputs where one computes the kernel's function, else null (none
+computes the sketch: its `nonzero_ms` is torch.nonzero of the selected
+flags, the compaction's indices alone); `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
 process of the two-host run, `launches_mesh` its launches on the
 use_mesh = 8 run, `launches_mesh_cards` on the use_mesh = 8 run over the
@@ -261,11 +266,9 @@ KERNEL_INFO = {
                           replaces="nextdenovo_tpu/overlap/engine.py:372"),
     "chain_emit": dict(source="nextdenovo_tpu_torch/csrc/engine.cu",
                        replaces="nextdenovo_tpu/overlap/engine.py:372"),
-    # sketch (:141) and sketch_wide (:302) share the two
-    "sketch_select": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
-                          replaces="nextdenovo_tpu/ops/sketch.py:141"),
-    "sketch_emit": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
-                        replaces="nextdenovo_tpu/ops/sketch.py:141"),
+    # sketch (:141) and sketch_wide (:302) share it
+    "sketch_minimizers": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
+                              replaces="nextdenovo_tpu/ops/sketch.py:141"),
     "hpc_compress": dict(source="nextdenovo_tpu_torch/csrc/sketch.cu",
                          replaces="nextdenovo_tpu/ops/sketch.py:281"),
     "myers_streams": dict(source="nextdenovo_tpu_torch/csrc/streams.cu",
@@ -1119,6 +1122,43 @@ def engine_anchor_full_range_sets(rng, H=400_000, M=100_003):
                                      pick(odd_h, M - M // 4 - 9)])), 16)]
 
 
+def main_store():
+    """The main path's reads (simulate_genome(GENOME_SIZE, seed=1), 30x of
+    8 kb reads at 10 % error, seed 2) as a SeqStore."""
+    from nextdenovo_tpu_torch.io.seqstore import SeqStore
+    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
+    genome = simulate_genome(GENOME_SIZE, seed=1)
+    sim = simulate_reads(genome, coverage=COVERAGE, mean_len=MEAN_LEN,
+                         error_rate=ERROR_RATE, seed=2)
+    return SeqStore.from_codes(sim.reads)
+
+
+def main_query_rows(store):
+    """(chunk rows, seeds) of one 16-row query batch of stage 01: 16 seeds
+    from the middle of the seeds' length order."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap import engine as E
+    s1 = STAGE01
+    lens = np.asarray(store.length, np.int64)
+    seeds = np.nonzero(lens >= SEED_CUTOFF)[0]
+    order = seeds[np.argsort(lens[seeds], kind="stable")]
+    mid = len(order) // 2
+    return E._chunk_rows(order[mid : mid + 16], lens, s1["k"], s1["w"]), \
+        seeds, order[mid : mid + 16]
+
+
+def main_index_rows(store, n=32):
+    """The last n chunk rows of the main path's index build in
+    build_index's order (every read by length, chunked): a full batch of
+    the longest reads, rows of up to CHUNK_LP columns."""
+    import numpy as np
+    from nextdenovo_tpu_torch.overlap import engine as E
+    lens = np.asarray(store.length, np.int64)
+    rows = E._chunk_rows(np.argsort(lens, kind="stable"), lens,
+                         STAGE01["k"], STAGE01["w"])
+    return rows[-n:]
+
+
 def main_batch(dev):
     """_match_block's inputs for one 16-row batch of stage 01 on the main
     path's reads: the index of all 3720 reads at k = 15, w = 5 on the card,
@@ -1126,21 +1166,13 @@ def main_batch(dev):
     query mask."""
     import numpy as np
     import torch
-    from nextdenovo_tpu_torch.io.seqstore import SeqStore
-    from nextdenovo_tpu_torch.io.simulate import simulate_genome, simulate_reads
     from nextdenovo_tpu_torch.overlap import engine as E
     s1 = STAGE01
-    genome = simulate_genome(GENOME_SIZE, seed=1)
-    sim = simulate_reads(genome, coverage=COVERAGE, mean_len=MEAN_LEN,
-                         error_rate=ERROR_RATE, seed=2)
-    store = SeqStore.from_codes(sim.reads)
+    store = main_store()
     lens = np.asarray(store.length, np.int64)
     idx = E.build_index(store, np.arange(len(store)), k=s1["k"], w=s1["w"],
                         max_occ=s1["index_max_occ"], device=dev)
-    seeds = np.nonzero(lens >= SEED_CUTOFF)[0]
-    order = seeds[np.argsort(lens[seeds], kind="stable")]
-    mid = len(order) // 2
-    rows = E._chunk_rows(order[mid : mid + 16], lens, s1["k"], s1["w"])
+    rows, seeds, picked = main_query_rows(store)
     m = E._sketch_rows(store, rows, s1["k"], s1["w"],
                        2 * 16 * E.CHUNK_LP // s1["w"] + 1024, dev)
     qmask = np.zeros(len(lens), np.int8)
@@ -1148,9 +1180,8 @@ def main_batch(dev):
     to = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
     args = (m.rid, m.pos, m.hash, m.strand, to([r[0] for r in rows]),
             to([r[1] for r in rows]), to(qmask), idx.h, idx.rid, idx.pos)
-    return dict(args=args, idx=idx, rows=len(rows),
-                read_lens=lens[order[mid : mid + 16]], store=store,
-                chunk_rows=rows)
+    return dict(args=args, idx=idx, rows=len(rows), read_lens=lens[picked],
+                store=store, chunk_rows=rows)
 
 
 def _engine_bounds(name, ins, outs, top_k):
@@ -2036,7 +2067,7 @@ def hpc_overlaps(dev, store):
 # --------------------------------------------------------------------------
 # the sketch kernels
 
-SKETCH_KERNELS = ("sketch_select", "sketch_emit")
+SKETCH_KERNELS = ("sketch_minimizers",)
 SKETCH_KS = (1, 15, 17, 31, 32, 51, 127)
 SKETCH_WS = (1, 5, 17, 51)
 
@@ -2047,12 +2078,13 @@ def sketch_edge_batch(rng, k, w, B=8, L=2100, pad=0):
     past each row's length hold random codes, N included): a row of length
     0, one a base shorter than w + k - 1, N codes, homopolymer runs, a
     tandem repeat of period 3 (tied hashes), an (AT)* run (every even k-mer
-    a palindrome), random rows of length L and just past a tile."""
+    a palindrome), random rows of length L and just past the kernel's tile
+    at w."""
     import numpy as np
-    from nextdenovo_tpu_torch.ops.sketch import SKETCH_TILE
+    from nextdenovo_tpu_torch.ops.sketch import sketch_tile
     buf = rng.integers(0, 5, (B, L + pad)).astype(np.int8)
     lens = np.minimum([0, max(w + k - 2, 0), L, L, 1500, 1200, L,
-                       SKETCH_TILE + 3], L)[:B].astype(np.int32)
+                       sketch_tile(w)[1] + 3], L)[:B].astype(np.int32)
     buf[2, :L:7] = 4
     buf[3, :L] = np.repeat(rng.integers(0, 4, L),
                            rng.integers(1, 40, L))[:L]
@@ -2065,45 +2097,15 @@ def sketch_edge_batch(rng, k, w, B=8, L=2100, pad=0):
 
 
 def _sketch_record(res, tag, got, want):
-    """Hold a sketch on the card (the kernels) against the plain version on
+    """Hold a sketch on the card (the kernel) against the plain version on
     the same tensors: every field, n and n_all."""
     if (got.n, got.n_all) != (want.n, want.n_all):
-        raise RuntimeError(f"sketch kernels on '{tag}': {got.n} ({got.n_all})"
+        raise RuntimeError(f"sketch kernel on '{tag}': {got.n} ({got.n_all})"
                            f" minimizers, the plain version {want.n} "
                            f"({want.n_all})")
-    _record(res, tag, "sketch_emit",
+    _record(res, tag, "sketch_minimizers",
             [getattr(got, f) for f in ("rid", "pos", "hash", "strand")],
             [getattr(want, f) for f in ("rid", "pos", "hash", "strand")])
-
-
-def _select_record(res, tag, codes, lens, k, w, own=(None, None),
-                   hpc=False):
-    """sketch_select's own outputs against select_plain's (h, strand, sel)
-    on the same CUDA tensors, exactly: the selected bit of every position,
-    the strand bit and the hash at each selected position, and each tile's
-    count.  Under hpc both take hpc_compress_plain's compressed rows."""
-    import torch
-    from nextdenovo_tpu_torch import _build
-    from nextdenovo_tpu_torch.ops import sketch as S
-    pos_map = None
-    if hpc:
-        codes, pos_map, lens = S.hpc_compress_plain(codes, lens)
-        pos_map = pos_map.contiguous()
-    sb = S._buffers(codes, lens, k, w, 0, *own, pos_map)
-    if sb.hsh.numel():
-        with torch.cuda.device(codes.device):
-            S._select_launch(_build.kernels(), sb, k, w)
-    h, strand, sel = S.select_plain(codes, lens, k, w, *own, pos_map,
-                                    wide=k > 31 or hpc)
-    B, L = sel.shape
-    T = S.SKETCH_TILE
-    tiles = torch.nn.functional.pad(sel.to(torch.int32),
-                                    (0, -(-L // T) * T - L))
-    ksel = (sb.flags & 2) != 0
-    _record(res, tag, "sketch_select",
-            [ksel, (sb.flags & 1)[sel], sb.hsh.to(torch.int64)[sel]
-             & 0xFFFFFFFF, sb.counts],
-            [sel, strand[sel], h[sel], tiles.view(B, -1, T).sum(2).view(-1)])
 
 
 def compare_sketch(tag, codes, lens, k, w, cap, own=(None, None),
@@ -2118,7 +2120,6 @@ def compare_sketch(tag, codes, lens, k, w, cap, own=(None, None),
     got = S.sketch_wide(codes, lens, k, w, cap, hpc=hpc, **kw)
     _sketch_record(res, tag, got, S.sketch_wide_plain(codes, lens, k, w, cap,
                                                       hpc=hpc, **kw))
-    _select_record(res, tag, codes, lens, k, w, own, hpc)
     if k <= 31 and not hpc:
         _sketch_record(res, tag, S.sketch(codes, lens, k, w, cap, **kw),
                        S.sketch_plain(codes, lens, k, w, cap, **kw))
@@ -2129,24 +2130,28 @@ def compare_sketch(tag, codes, lens, k, w, cap, own=(None, None),
 
 
 def sketch_sets(dev, rng, ks=SKETCH_KS, ws=SKETCH_WS,
-                slices=((15, 5), (17, 17), (51, 51), (32, 1))):
-    """The kernels on the edge rows at every (k, w) of ks x ws; at each
-    (k, w) of slices a column-sliced view of a wider buffer, with a
-    truncating cap, with own gates, and hpc with own gates and int64
-    lengths.  Returns {name: result}."""
+                slices=((15, 5), (17, 17), (51, 51), (32, 1)),
+                extra=((16, 17), (47, 5), (48, 51), (128, 1), (143, 17),
+                       (15, 1101), (51, 2048))):
+    """The kernels on the edge rows at every (k, w) of ks x ws and of extra
+    (k at the lanes' edges and at the kernel's largest, w past a whole
+    tile, with rows long enough for such windows); at each (k, w) of slices
+    a column-sliced view of a wider buffer, with a truncating cap, with own
+    gates, and hpc with own gates and int64 lengths.  Returns {name:
+    result}."""
     import numpy as np
     import torch
     res = {}
     to = lambda a: torch.from_numpy(a).to(dev)
-    for k in ks:
-        for w in ws:
-            buf, lens = sketch_edge_batch(rng, k, w)
-            B, L = buf.shape
-            r, got = compare_sketch(f"edge rows k={k} w={w}", to(buf),
-                                    to(lens), k, w, B * L)
-            res.update(r)
-            if got.n_all == 0:
-                raise RuntimeError(f"edge rows k={k} w={w}: no minimizer")
+    grid = [(k, w) for k in ks for w in ws] + list(extra)
+    for k, w in grid:
+        buf, lens = sketch_edge_batch(rng, k, w, L=max(2100, 2 * w + 1500))
+        B, L = buf.shape
+        r, got = compare_sketch(f"edge rows k={k} w={w}", to(buf),
+                                to(lens), k, w, B * L)
+        res.update(r)
+        if got.n_all == 0:
+            raise RuntimeError(f"edge rows k={k} w={w}: no minimizer")
     for k, w in slices:
         buf, lens = sketch_edge_batch(rng, k, w, pad=333)
         B, L = buf.shape[0], buf.shape[1] - 333
@@ -2207,19 +2212,22 @@ def _batch_tensors(dev, store, rows):
 def phase_sketch(dev, mb):
     """The sketch kernels against their plain versions on the card, exact
     in every field, n and n_all: sketch_sets; one 16-row batch of the main
-    path's stage 01 (mb, k = 15, w = 5, with its own gates and cap); the
-    HiFi batch's 32 longest chunk rows at k = w = 51, raw and hpc; a
-    mesh-sized launch of 128 rows through a 20000-column slice of a 32768-
-    column buffer; the host syncs of one sketch call (at most one).
-    Returns the main path's batch as tensors on dev."""
+    path's stage 01 (mb, k = 15, w = 5, with its own gates and cap) and one
+    32-row batch of its index build; the HiFi batch's 32 longest chunk rows
+    at k = w = 51, raw and hpc; a mesh-sized launch of 128 rows through a
+    20000-column slice of a 32768-column buffer (2560 tiles: look-backs
+    past whole windows of status words); the host syncs of one sketch call
+    (at most one).  Returns the main path's query and index batches as
+    tensors on dev: {"main": ..., "index": ...}."""
     import numpy as np
     from nextdenovo_tpu_torch.ops import sketch as S
     from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
     rng = np.random.default_rng(29)
     t0 = time.time()
     r = sketch_sets(dev, rng)
-    log(f"[sketch] edge rows at k in {SKETCH_KS}, w in {SKETCH_WS}, column "
-        f"slices, own gates, a truncating cap and hpc: " + ", ".join(
+    log(f"[sketch] edge rows at k in {SKETCH_KS}, w in {SKETCH_WS} and at "
+        f"the lanes' edges and w past a tile, column slices, own gates, a "
+        f"truncating cap and hpc: " + ", ".join(
             f"{k_} exact={v['exact']}" for k_, v in r.items())
         + f" ({time.time() - t0:.1f}s)")
     s1 = STAGE01
@@ -2235,6 +2243,13 @@ def phase_sketch(dev, mb):
         f"{at}")
     if n_sync > 1:
         raise RuntimeError(f"a sketch call made {n_sync} host syncs: {at}")
+    index = _batch_tensors(dev, mb["store"], main_index_rows(mb["store"]))
+    c, l_, o1, o2 = index
+    _, got = compare_sketch("the main path's index batch", c, l_, s1["k"],
+                            s1["w"], 2 * 32 * CHUNK_LP // s1["w"] + 1024,
+                            own=(o1, o2))
+    log(f"[sketch] the main path's index batch {tuple(c.shape)}: {got.n} "
+        f"minimizers, kernels == plain")
     for hpc in (False, True):
         store, rows = hifi_sketch_rows(hpc)
         c, l_, o1, o2 = _batch_tensors(dev, store, rows)
@@ -2250,29 +2265,26 @@ def phase_sketch(dev, mb):
     log(f"[sketch] a mesh-sized launch {B} x {top} (> {CHUNK_LP} columns, "
         f"pitch {view.stride(0)}): {got.n} minimizers, kernels == plain "
         f"({time.time() - t0:.1f}s in all)")
-    return main
+    return dict(main=main, index=index)
 
 
 def _sketch_bounds(name, B, L, n, nvalid, k=15, hpc=False, own=True):
     """(bytes, int32 operations) the kernel's work needs: each input read
     once, each output written once; nvalid positions lie inside their
-    rows' lengths, the rest is padding that needs no work.  sketch_select:
-    a code byte read a valid position, a flag byte written a position, 4 B
-    a selected hash, and per valid position the least work of a canonical
-    hash over the ceil(k / 16) lanes that carry bases (a leading empty
-    lane's hash is a constant): rolling fwd and rc k-mers (3 instructions
-    a lane each), the lane compare, mix32 a lane (9), then the window
-    minimum and the selection (~8).  sketch_emit: the flags, 4 B a hash
-    read and 32 B written a minimizer.  hpc_compress: a byte read a valid
-    position and 9 B written a position."""
+    rows' lengths, the rest is padding that needs no work.
+    sketch_minimizers: a code byte read a valid position, the rows' lengths
+    and gates, 32 B written a minimizer (and 8 B of pos_map read under
+    hpc), n_all; per valid position the least work of a canonical hash
+    over the ceil(k / 16) lanes that carry bases (a leading empty lane's
+    hash is a constant): rolling fwd and rc k-mers (3 instructions a lane
+    each), the lane compare, mix32 a lane (9), then the window minimum and
+    the selection (~8).  hpc_compress: a byte read a valid position and 9 B
+    written a position."""
     lanes = -(-k // 16)
-    if name == "sketch_select":
-        byt = nvalid * (1 + (8 if hpc else 0)) + B * L \
-            + B * (4 + (8 if own else 0)) + n * 4
+    if name == "sketch_minimizers":
+        byt = nvalid + B * (4 + (8 if own else 0)) \
+            + n * (32 + (8 if hpc else 0)) + 8
         ops = nvalid * (16 * lanes + 8)
-    elif name == "sketch_emit":
-        byt = B * L + n * (4 + 32 + (8 if hpc else 0)) + 8
-        ops = B * L * 2
     else:
         byt = nvalid + B * L * 9 + B * 8
         ops = nvalid * 4
@@ -2300,23 +2312,69 @@ def plain_launches(fn):
     return n or None
 
 
+def sketch_sass(src):
+    """{kernel: dict(registers, spill_bytes, sass)} of a sketch.cu source
+    for sm_90a: `nvcc -Xptxas -v` to a cubin, and the SASS instructions of
+    each kernel (a template instance named with its argument) counted in
+    `cuobjdump -sass`."""
+    import re
+    from nextdenovo_tpu_torch import _build
+    nvcc = _build.find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "s.cubin")
+        r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                            "-cubin", "-o", cubin, src],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"nvcc {src} failed:\n{r.stdout}{r.stderr}")
+        d = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"),
+                            "-sass", cubin], capture_output=True, text=True,
+                           check=True).stdout
+
+    def short(mangled):
+        m = re.search(r"(\w+?_kernel)(?:ILi(\d+)E)?", mangled)
+        return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+    out, cur = {}, None
+    for line in (r.stdout + r.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = short(m.group(1))
+            out[cur] = dict(registers=None, spill_bytes=None, sass=0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            out[cur]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur]["registers"] = int(m.group(1))
+    cur = None
+    for line in d.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = short(m.group(1))
+            out.setdefault(cur, dict(registers=None, spill_bytes=None,
+                                     sass=0))
+        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+            out[cur]["sass"] += 1
+    return out
+
+
 def _sketch_shape_timing(dev, tag, codes, lens, lo, hi, k, w, cap,
                          wide=False):
-    """One shape: sketch_select and sketch_emit alone (launches only, CUDA
+    """One shape: sketch_minimizers alone (its memset and launch only, CUDA
     events after a device sleep), the whole wrapper call (host sync
-    included), the plain versions' select and emit steps and whole call on
-    the card, the plain call's device kernels."""
+    included) and the device operations of one call (torch.profiler), the
+    plain versions' select and emit steps and whole call on the card, the
+    plain call's device kernels, and torch.nonzero of the selected flags
+    (the compaction's indices only)."""
     import torch
     from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.ops import sketch as S
     lib = _build.kernels()
     sb = S._buffers(codes, lens, k, w, cap, lo, hi)
-    sel_ms = _events_ms(lambda: S._select_launch(lib, sb, k, w))
-    emit_ms = _events_ms(lambda: S._emit_launch(lib, sb))
-    # the library call beside sketch_emit: the compaction's indices, one
-    # torch.nonzero of the selected flags (the gathers not included)
-    selected = (sb.flags & 2) != 0
-    nonzero_ms = _events_ms(lambda: torch.nonzero(selected))
+    ms = _events_ms(lambda: S._minimizers_launch(lib, sb, k, w))
     call = (lambda: S.sketch_wide(codes, lens, k, w, cap, own_lo=lo,
                                   own_hi=hi)) if wide else \
         (lambda: S.sketch(codes, lens, k, w, cap, own_lo=lo, own_hi=hi))
@@ -2328,55 +2386,72 @@ def _sketch_shape_timing(dev, tag, codes, lens, lo, hi, k, w, cap,
     _, psel_ms = timed(lambda: S.select_plain(codes, lens, k, w, lo, hi,
                                               wide=wide), 3)
     _, pemit_ms = timed(lambda: S.emit_plain(hsp, stp, selp, cap), 3)
+    flat = selp.reshape(-1)
+    nonzero_ms = _events_ms(lambda: torch.nonzero(flat))
     n_pl = plain_launches(pcall)
+    n_ops = plain_launches(call)
     B, L = codes.shape
+    np_ = lib.ndt_sketch_layout(B, L, k, w)
     out = {}
     _sketch_record(out, tag, m, pcall())
-    _select_record(out, tag, codes, lens, k, w, (lo, hi))
     nvalid = _valid_positions(lens, L)
-    out["sketch_emit"]["library_ms"] = nonzero_ms
-    for name, ms, pms in (("sketch_select", sel_ms, psel_ms),
-                          ("sketch_emit", emit_ms, pemit_ms)):
-        out[name].update(ms=ms, plain_ms=pms, wrapper_ms=call_ms,
-                         plain_call_ms=pcall_ms, plain_call_launches=n_pl,
-                         shape=f"{B} x {L}, k={k}, w={w}, {m.n} minimizers",
-                         valid_positions=nvalid,
-                         **_bound(*_sketch_bounds(name, B, L, m.n, nvalid,
-                                                  k)))
-    log(f"[timing] sketch at {tag} ({out['sketch_select']['shape']}): "
-        f"sketch_select alone {sel_ms:.4f} ms (bound "
-        f"{out['sketch_select']['bound_ms']:.4f}, "
-        f"{out['sketch_select']['bound_by']}), sketch_emit alone "
-        f"{emit_ms:.4f} ms (bound {out['sketch_emit']['bound_ms']:.4f}, "
-        f"{out['sketch_emit']['bound_by']}; torch.nonzero of the selected "
-        f"flags {nonzero_ms:.4f} ms); the wrapper's call "
-        f"{call_ms:.4f} ms; plain on the card: select {psel_ms:.3f} ms, emit "
-        f"{pemit_ms:.3f} ms, call {pcall_ms:.3f} ms in {n_pl} device kernels")
+    out["sketch_minimizers"].update(
+        ms=ms, plain_ms=pcall_ms, library_ms=None, nonzero_ms=nonzero_ms,
+        wrapper_ms=call_ms, call_device_ops=n_ops, plain_select_ms=psel_ms,
+        plain_emit_ms=pemit_ms, plain_call_launches=n_pl,
+        shape=f"{B} x {L}, k={k}, w={w}, {m.n} minimizers, tiles of "
+              f"{np_ - 2 * (w - 1)} ({np_ // S.SKETCH_THREADS} positions a "
+              f"thread)",
+        valid_positions=nvalid,
+        **_bound(*_sketch_bounds("sketch_minimizers", B, L, m.n, nvalid, k)))
+    r = out["sketch_minimizers"]
+    log(f"[timing] sketch at {tag} ({r['shape']}): sketch_minimizers alone "
+        f"{ms:.4f} ms (its memset and launch; bound {r['bound_ms']:.5f}, "
+        f"{r['bound_by']}); the wrapper's call {call_ms:.4f} ms in {n_ops} "
+        f"device operations; torch.nonzero of the selected flags "
+        f"{nonzero_ms:.4f} ms; plain on the card: select {psel_ms:.3f} ms, "
+        f"emit {pemit_ms:.3f} ms, call {pcall_ms:.3f} ms in {n_pl} device "
+        f"kernels")
     return out
 
 
-def sketch_timing(dev, main):
-    """The sketch kernels at their paths' shapes: the main path's 16-row
-    stage-01 batch (k = 15, w = 5; the kernels line's figures) and the HiFi
-    batch's 32 longest chunk rows at k = w = 51; hpc_compress alone on the
-    HiFi batch's hpc rows, against hpc_compress_plain.  Returns {name:
-    result}."""
+SKETCH_SHAPE_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "wrapper_ms",
+                     "nonzero_ms", "call_device_ops", "plain_call_launches",
+                     "shape")
+
+
+def sketch_timing(dev, batches):
+    """The sketch kernel at its paths' shapes: the main path's 16-row
+    stage-01 query batch (k = 15, w = 5; the kernels line's figures), a
+    32-row batch of its index build (index_*) and the HiFi batch's 32
+    longest chunk rows at k = w = 51 (hifi_*); the kernels' registers,
+    spills and SASS instructions; hpc_compress alone on the HiFi batch's
+    hpc rows, against hpc_compress_plain.  Returns {name: result}."""
+    from nextdenovo_tpu_torch import _build
     from nextdenovo_tpu_torch.ops import sketch as S
     from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
     s1 = STAGE01
-    codes, lens, lo, hi = main
+    codes, lens, lo, hi = batches["main"]
     out = _sketch_shape_timing(dev, "the main path's batch", codes, lens, lo,
                                hi, s1["k"], s1["w"],
                                2 * 16 * CHUNK_LP // s1["w"] + 1024)
+    codes, lens, lo, hi = batches["index"]
+    idx = _sketch_shape_timing(dev, "the main path's index batch", codes,
+                               lens, lo, hi, s1["k"], s1["w"],
+                               2 * 32 * CHUNK_LP // s1["w"] + 1024)
     store, rows = hifi_sketch_rows()
     c, l_, o1, o2 = _batch_tensors(dev, store, rows)
     hifi = _sketch_shape_timing(dev, "the HiFi batch", c, l_, o1, o2, 51, 51,
                                 2 * 32 * CHUNK_LP // 51 + 1024, wide=True)
-    for name in SKETCH_KERNELS:
-        out[name].update({f"hifi_{k_}": hifi[name][k_]
-                          for k_ in ("ms", "plain_ms", "bound_ms",
-                                     "wrapper_ms", "plain_call_ms",
-                                     "plain_call_launches", "shape")})
+    for pre, r in (("index", idx), ("hifi", hifi)):
+        out["sketch_minimizers"].update(
+            {f"{pre}_{k_}": r["sketch_minimizers"][k_]
+             for k_ in SKETCH_SHAPE_KEYS})
+    sass = sketch_sass(os.path.join(_build.CSRC_DIR, "sketch.cu"))
+    out["sketch_minimizers"]["sass"] = sass
+    log("[timing] sketch.cu for sm_90a: " + "; ".join(
+        f"{k_}: {v['registers']} registers, {v['spill_bytes']} B spills, "
+        f"{v['sass']} SASS instructions" for k_, v in sass.items()))
     store, rows = hifi_sketch_rows(hpc=True)
     c, l_, _, _ = _batch_tensors(dev, store, rows)
     B, L = c.shape
@@ -2901,7 +2976,7 @@ def hpc_index_scale(dev, reads):
     each build's wall ended by a synchronise, its entries and its peak
     device memory above what was allocated before it.  Returns the launch
     counts of the hpc build (counters at 0 just before); fails where it
-    launched no hpc_compress, sketch_select or sketch_emit."""
+    launched no hpc_compress or sketch_minimizers."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch import _build
@@ -3910,6 +3985,20 @@ def route_timing(dev, reps=5):
         f"{out['seed_symmetrize']['bound_ms']:.4f}, bytes); plain on the "
         f"card {plain_ms:.3f} ms in "
         f"{out['seed_symmetrize']['plain_call_launches']} device kernels")
+    # the seven-key sort (a library sort, not ported) on as many rows as
+    # this shard's valid views, the rows a shard receives on average: its
+    # bound is seven stable passes, each key read once, the permutation
+    # written once
+    cols, valid, _ = DS.seed_symmetrize(rec, is_seed, lens, n)
+    qn, rv, s_, e_, tn, ts2, _, mt = cols[:, valid].unbind(0)
+    keys = [qn, -mt, e_ - s_, tn, ts2, s_, rv]
+    V = int(qn.shape[0])
+    ms = _events_ms(lambda: E._stable_lexsort(keys), reps)
+    out["seven_key_sort"] = dict(ms=ms, rows=V,
+                                 **_bound(7 * V * 8 + V * 8, 0))
+    log(f"[timing] the seed sort's seven-key sort (_stable_lexsort, seven "
+        f"stable torch.sort passes) on {V} rows: {ms:.4f} ms (bound "
+        f"{out['seven_key_sort']['bound_ms']:.5f}, bytes)")
 
     key = next(k for k in ("lookup_gate", "lookup_nogate")
                if k in MESH_CALLS)
@@ -4308,9 +4397,10 @@ def main() -> int:
                                  "directory_ms", "searchsorted_ms",
                                  "searchsorted_ms_l2_flushed",
                                  "plain_call_ms", "plain_call_launches",
-                                 "hifi_ms", "hifi_plain_ms", "hifi_bound_ms",
-                                 "hifi_wrapper_ms", "hifi_plain_call_ms",
-                                 "hifi_plain_call_launches", "hifi_shape")
+                                 "nonzero_ms", "call_device_ops",
+                                 "plain_select_ms", "plain_emit_ms",
+                                 *(f"{p}_{k_}" for p in ("index", "hifi")
+                                   for k_ in SKETCH_SHAPE_KEYS))
                if k in t}))
     log(f"[done] genome {GENOME_SIZE} bp, total {time.time() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))

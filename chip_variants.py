@@ -8,9 +8,11 @@
     python3 chip_variants.py --kernel vote_corridor A.cu [B.cu ...]
     python3 chip_variants.py --kernel chain_emit A.cu [B.cu ...]
     python3 chip_variants.py --kernel engine_anchor A.cu [B.cu ...]
+    python3 chip_variants.py --kernel sketch_minimizers [--phases] [A.cu ...]
     python3 chip_variants.py --turns PARENT_DIR
     python3 chip_variants.py --match-turns PARENT_DIR
     python3 chip_variants.py --mesh-memory PARENT_DIR
+    python3 chip_variants.py --sketch-turns PARENT_DIR
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -86,6 +88,22 @@ reverse, on the main path's batch: 5 launches after a warm one between two
 events (the device asleep first), and each launch between its own events,
 warm and with the L2 flushed before it (a 256 MB write).
 
+--kernel sketch_minimizers: each A.cu is a whole copy of csrc/sketch.cu with
+the package's ndt_sketch_minimizers signature.  Every copy is built into a
+library of its own and held, with the package's kernel, against
+sketch_wide_plain (every field, n and n_all) on the main path's query batch,
+a batch of its index build, the HiFi batch, edge rows at a few (k, w) (w past
+a tile among them) and a mesh-sized launch of 2560 tiles.  Then every copy
+is timed in turns, in the order given and in reverse, at the three batches
+(its memset and launch, CUDA events around 5 calls after a device sleep),
+and each call's device time by operation (the memset, the kernel) is read
+from torch.profiler.  A copy that exports `int ndt_dbg(void* host, int n)`,
+copying 12 int64 a block (the global timer at its start, clock64 at the
+ends of its phases, the global timer at its end, its ticket), gets them
+summarised at each batch; --phases adds two such copies made from the
+package's sketch.cu (sketch_phase_copies): as it is, and with release
+stores and acquire loads of the look-back's status words.
+
 --turns PARENT_DIR: this checkout against an earlier tree unpacked in
 PARENT_DIR (git archive), in turns parent, this, this, parent.  First
 --engine-anchor-turn of each (a process each): engine_anchor at the main
@@ -114,6 +132,13 @@ DIR): each tree's own chip_smoke main path, then its mesh path (use_mesh =
 Mesh.for_each_card phase and around dist_overlap's build_index (and
 index_shards, where the tree has it); one line a phase (MiB allocated
 before, peak, after), then the mesh path's peak.
+
+--sketch-turns PARENT_DIR: the sketch kernels of the earlier tree in
+PARENT_DIR against this checkout's, a process each (--sketch-turn DIR), in
+turns parent, this, this, parent: at the main path's query batch, a batch
+of its index build and the HiFi batch, the launches alone (after a device
+sleep) and the wrapper's whole call; each tree's sketch.cu registers,
+spills and SASS instructions.
 
 --latency first runs a one-warp microbenchmark: a chain of dependent
 shared-memory loads, the same chain with the walk's mask, compare and two
@@ -838,6 +863,280 @@ def main_mesh_memory(parent) -> int:
     return 0
 
 
+SKETCH_PHASE_MARKS = (
+    # (text in csrc/sketch.cu, what goes before it): thread 0 stamps clock64
+    # at the end of each phase; slots 1..9 of a block's 12
+    ("    if (tid == 0) s_g = (int)atomicAdd(ticket, 1u);\n",
+     "    long long* dbg = g_dbg + (int64_t)min(blockIdx.x, 16383u) * 12;\n"
+     "    if (tid == 0) { dbg[0] = gtime(); dbg[1] = clock64(); }\n"),
+    ("    const int b = g / n_tiles;\n",
+     "    if (tid == 0) dbg[2] = clock64();\n"),
+    ("    // (2) the canonical hash", "    if (tid == 0) dbg[3] = clock64();\n"),
+    ("    // (3) spans of 2^d", "    if (tid == 0) dbg[4] = clock64();\n"),
+    ("    const int off = w - (1 << p2);\n",
+     "    if (tid == 0) dbg[5] = clock64();\n"),
+    ("    // (4) selection", "    if (tid == 0) dbg[6] = clock64();\n"),
+    ("    if (tid == 0)\n        st_status(status + g, (g == 0",
+     "    if (tid == 0) dbg[7] = clock64();\n"),
+    ("    // (6) each selected", "    if (tid == 0) dbg[8] = clock64();\n"))
+SKETCH_PHASES = ("ticket", "codes and packing", "hashes", "doubling",
+                 "marks", "selection and ranks", "look-back", "writes")
+
+
+def sketch_phase_copies(tmp):
+    """Two instrumented copies of the package's csrc/sketch.cu in tmp, each
+    exporting ndt_dbg: thread 0 of each block stamps the global timer at
+    its start and end, clock64 at the end of each phase (SKETCH_PHASES) and
+    its ticket.  sketch_phases.cu as it is; sketch_phases_acqrel.cu with
+    release stores and acquire loads of the status words.  Returns their
+    paths."""
+    from nextdenovo_tpu_torch import _build
+    src = open(os.path.join(_build.CSRC_DIR, "sketch.cu")).read()
+    head = ("__device__ long long g_dbg[16384 * 12];\n\nnamespace {\n\n"
+            "__device__ __forceinline__ long long gtime() {\n"
+            "    long long t;\n"
+            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+            "    return t;\n}\n")
+    s = src.replace("namespace {\n", head, 1)
+    for mark, stamp in SKETCH_PHASE_MARKS:
+        if s.count(mark) != 1:
+            raise RuntimeError(f"sketch.cu: no single {mark!r}")
+        s = s.replace(mark, stamp + mark)
+    end = "            out[3 * stride + o] = mstr[t];\n        }\n    }\n"
+    if s.count(end) != 1:
+        raise RuntimeError("sketch.cu: no single end of the writes")
+    s = s.replace(end, end + "    if (tid == 0) { dbg[9] = clock64(); "
+                  "dbg[10] = gtime(); dbg[11] = g; }\n")
+    s = s.replace('extern "C" {\n', 'extern "C" {\n\n'
+                  '// copies n blocks\' stamps out, then zeroes them all\n'
+                  'int ndt_dbg(void* host, int n) {\n'
+                  '    int e = (int)cudaMemcpyFromSymbol(host, g_dbg, '
+                  '(size_t)n * 12 * 8);\n'
+                  '    void* p = nullptr;\n'
+                  '    if (e == 0) e = (int)cudaGetSymbolAddress(&p, g_dbg);\n'
+                  '    if (e == 0) e = (int)cudaMemset(p, 0, sizeof(g_dbg));\n'
+                  '    return e;\n}\n', 1)
+    acq = s.replace("st.relaxed.gpu.global.u64", "st.release.gpu.global.u64") \
+        .replace("ld.relaxed.gpu.global.u64", "ld.acquire.gpu.global.u64")
+    out = []
+    for name, text in (("sketch_phases.cu", s),
+                       ("sketch_phases_acqrel.cu", acq)):
+        out.append(os.path.join(tmp, name))
+        with open(out[-1], "w") as fh:
+            fh.write(text)
+    return out
+
+
+def main_sketch_minimizers(srcs) -> int:
+    """--kernel sketch_minimizers [--phases] A.cu ...: see the module's
+    docstring."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import sketch as S
+    from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
+    c.phase_env()
+    _build.build(native=False)
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    libs = {"package": _build.kernels()}
+    tmp = tempfile.mkdtemp(prefix="chip_variants_")
+    if "--phases" in srcs:
+        srcs = [x for x in srcs if x != "--phases"] + sketch_phase_copies(tmp)
+    libs.update(build_copies(
+        _build.find_nvcc(), _build.NVCC_FLAGS, tmp, srcs,
+        "ndt_sketch_minimizers",
+        [vp, ll] + [vp] * 5 + [ll, vp, vp, ll] + [ci] * 4 + [vp]))
+    d = torch.device("cuda")
+    to = lambda a: torch.from_numpy(a).to(d)
+    store = c.main_store()
+    rows, _, _ = c.main_query_rows(store)
+    hs, hr = c.hifi_sketch_rows()
+    shapes = {"main": (c._batch_tensors(d, store, rows), 15, 5,
+                       2 * 16 * CHUNK_LP // 5 + 1024),
+              "index": (c._batch_tensors(d, store, c.main_index_rows(store)),
+                        15, 5, 2 * 32 * CHUNK_LP // 5 + 1024),
+              "hifi": (c._batch_tensors(d, hs, hr), 51, 51,
+                       2 * 32 * CHUNK_LP // 51 + 1024)}
+    sets = dict(shapes)
+    rng = np.random.default_rng(5)
+    for k, w in ((1, 1), (15, 5), (48, 51), (143, 17), (15, 2048)):
+        buf, lens = c.sketch_edge_batch(rng, k, w, L=max(2100, 2 * w + 1500))
+        sets[f"edge k={k} w={w}"] = ((to(buf), to(lens), None, None), k, w,
+                                     buf.size)
+    view, ml = c.mesh_sized_codes(d, rng)
+    sets["mesh-sized"] = ((view, ml, None, None), 15, 5, view.numel())
+
+    def launcher(lib, args, k, w, cap):
+        codes, lens, lo, hi = args
+        sb = S._buffers(codes, lens, k, w, cap, lo, hi)
+        B, L = codes.shape
+
+        def go():
+            rc = lib.ndt_sketch_minimizers(
+                codes.data_ptr(), sb.pitch, sb.lens.data_ptr(),
+                S._ptr(sb.own_lo), S._ptr(sb.own_hi), None,
+                sb.out.data_ptr(), sb.out.shape[1], sb.n_all.data_ptr(),
+                sb.status.data_ptr(), sb.status.shape[0], B, L, k, w,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"launch failed: error {rc}")
+        return sb, go
+
+    for tag, (args, k, w, cap) in sets.items():
+        codes, lens, lo, hi = args
+        ref = S.sketch_wide_plain(codes, lens, k, w, cap, own_lo=lo,
+                                  own_hi=hi)
+        want = torch.stack([ref.rid, ref.pos, ref.hash, ref.strand])
+        for name, lib in libs.items():
+            sb, go = launcher(lib, args, k, w, cap)
+            go()
+            n_all = int(sb.n_all)
+            if n_all != ref.n_all or not torch.equal(sb.out[:, :ref.n], want):
+                raise RuntimeError(f"{name} differs from sketch_wide_plain on "
+                                   f"{tag} ({n_all} against {ref.n_all})")
+    log(f"[variants] every copy equal to sketch_wide_plain on "
+        f"{', '.join(sets)}")
+    times = {}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            for tag, (args, k, w, cap) in shapes.items():
+                _, go = launcher(libs[name], args, k, w, cap)
+                times.setdefault((name, tag), []).append(c._events_ms(go))
+    for name in libs:
+        dev_ms = {}
+        for tag, (args, k, w, cap) in shapes.items():
+            _, go = launcher(libs[name], args, k, w, cap)
+            go()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    go()
+                torch.cuda.synchronize()
+            dev_ms[tag] = {
+                ("kernel" if "sketch" in e.key else e.key[:24]):
+                round(e.device_time_total / 1e3 / 5, 5)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+        log(f"[variants] {name}: " + "; ".join(
+            f"{tag} " + " / ".join(f"{x:.4f}" for x in times[(name, tag)])
+            + f" ms, device {json.dumps(dev_ms[tag])}" for tag in shapes))
+    for name, lib in libs.items():
+        if not hasattr(lib, "ndt_dbg"):
+            continue
+        for tag, (args, k, w, cap) in shapes.items():
+            sb, go = launcher(lib, args, k, w, cap)
+            G = sb.status.shape[0] - 1        # at most
+            buf = (ctypes.c_longlong * (G * 12))()
+            dbg = lambda: lib.ndt_dbg(ctypes.cast(buf, ctypes.c_void_p), G)
+            torch.cuda.synchronize()
+            rc = dbg()                        # clears the earlier stamps
+            go()
+            torch.cuda.synchronize()
+            if rc != 0 or dbg() != 0:
+                raise RuntimeError("ndt_dbg failed")
+            a = np.frombuffer(buf, dtype=np.int64).reshape(G, 12)
+            a = a[a[:, 1] != 0]           # the blocks the copy launched
+            G = a.shape[0]
+            ph = np.diff(a[:, 1:10], axis=1)
+            t0 = a[:, 0].min()
+            log(f"[variants] {name} {tag}, {G} blocks, cycles a phase "
+                f"(median / max over blocks): " + ", ".join(
+                    f"{SKETCH_PHASES[j]} {int(np.median(ph[:, j]))}/"
+                    f"{int(ph[:, j].max())}" for j in range(ph.shape[1]))
+                + f"; block starts {(a[:, 0] - t0).max() / 1e3:.2f} us "
+                f"after the first, ends {(a[:, 10] - t0).min() / 1e3:.2f}-"
+                f"{(a[:, 10] - t0).max() / 1e3:.2f} us; ticket != blockIdx "
+                f"in {int((a[:, 11] != np.arange(G)).sum())} blocks")
+    return 0
+
+
+def sketch_turn(tree) -> int:
+    """--sketch-turn DIR: the sketch kernels of the package in the checkout
+    DIR at three shapes: the main path's 16-row query batch and a 32-row
+    batch of its index build (k = 15, w = 5), and the HiFi batch's 32
+    longest chunk rows (k = w = 51), each with its own gates and cap.  For
+    each: the kernels' launches alone (CUDA events after a device sleep;
+    sketch_select and sketch_emit each and both where the package has
+    them, else sketch_minimizers with its memset), the wrapper's whole
+    call (host sync included), and the minimizers.  Also the registers,
+    spills and SASS instructions of the checkout's csrc/sketch.cu.  Prints
+    one JSON line."""
+    import chip_smoke as c
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.ops import sketch as S
+    from nextdenovo_tpu_torch.overlap.engine import CHUNK_LP
+    if not S.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {S.__file__}, not the package in {tree}")
+    c.phase_env()
+    _build.build(native=False)
+    d = torch.device("cuda")
+    lib = _build.kernels()
+    store = c.main_store()
+    rows, _, _ = c.main_query_rows(store)
+    hs, hr = c.hifi_sketch_rows()
+    shapes = (("main", c._batch_tensors(d, store, rows), 15, 5, 16, False),
+              ("index", c._batch_tensors(d, store, c.main_index_rows(store)),
+               15, 5, 32, False),
+              ("hifi", c._batch_tensors(d, hs, hr), 51, 51, 32, True))
+    res = {"tree": tree, "sass": c.sketch_sass(os.path.join(
+        tree, "nextdenovo_tpu_torch", "csrc", "sketch.cu"))}
+    for name, (codes, lens, lo, hi), k, w, nrows, wide in shapes:
+        cap = 2 * nrows * CHUNK_LP // w + 1024
+        sb = S._buffers(codes, lens, k, w, cap, lo, hi)
+        if hasattr(S, "_minimizers_launch"):
+            launches = {"sketch_minimizers":
+                        lambda: S._minimizers_launch(lib, sb, k, w)}
+        else:
+            launches = {"sketch_select": lambda: S._select_launch(lib, sb, k,
+                                                                  w),
+                        "sketch_emit": lambda: S._emit_launch(lib, sb),
+                        "both": lambda: (S._select_launch(lib, sb, k, w),
+                                         S._emit_launch(lib, sb))}
+        fn = S.sketch_wide if wide else S.sketch
+        m, call_ms = c.timed(lambda: fn(codes, lens, k, w, cap, own_lo=lo,
+                                        own_hi=hi), 5)
+        res[name] = dict(shape=f"{tuple(codes.shape)} k={k} w={w}", n=m.n,
+                         launch_ms={n: c._events_ms(f)
+                                    for n, f in launches.items()},
+                         wrapper_ms=call_ms)
+    log(json.dumps({"sketch_turn": res}))
+    return 0
+
+
+def main_sketch_turns(parent) -> int:
+    """--sketch-turns PARENT: sketch_turn of the checkout in PARENT and of
+    this one, a process each, in turns parent, this, this, parent; the
+    minimizer counts must agree.  Prints each turn's line and a summary."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    turns = []
+    for tree in (parent, here, here, parent):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--sketch-turn", tree], cwd=here,
+                           capture_output=True, text=True)
+        sys.stdout.write(r.stdout)
+        sys.stderr.write(r.stderr[-4000:])
+        if r.returncode:
+            return r.returncode
+        line = [x for x in r.stdout.splitlines() if '"sketch_turn"' in x][-1]
+        turns.append(json.loads(line)["sketch_turn"])
+    for name in ("main", "index", "hifi"):
+        ns = {t[name]["n"] for t in turns}
+        if len(ns) != 1:
+            raise RuntimeError(f"{name}: the trees' minimizer counts differ: "
+                               f"{ns}")
+        log(f"[sketch-turns] {name} {turns[0][name]['shape']}: " + " | ".join(
+            ("parent" if t["tree"] == parent else "this") + " "
+            + ", ".join(f"{n} {v:.4f}" for n, v in t[name]["launch_ms"].items())
+            + f", wrapper {t[name]['wrapper_ms']:.4f} ms" for t in turns))
+    return 0
+
+
 def main_turns(parent) -> int:
     """--turns PARENT: this checkout against the one in PARENT (an earlier
     tree, unpacked with git archive), in turns parent, this, this, parent:
@@ -907,10 +1206,16 @@ def main(argv) -> int:
         return main_engine(argv[2:], argv[1])
     if argv[:2] == ["--kernel", "engine_anchor"]:
         return main_engine_anchor(argv[2:])
+    if argv[:2] == ["--kernel", "sketch_minimizers"]:
+        return main_sketch_minimizers(argv[2:])
     if argv[:1] == ["--engine-anchor-turn"]:
         return engine_anchor_turn(argv[1])
     if argv[:1] == ["--turns"]:
         return main_turns(argv[1])
+    if argv[:1] == ["--sketch-turn"]:
+        return sketch_turn(argv[1])
+    if argv[:1] == ["--sketch-turns"]:
+        return main_sketch_turns(argv[1])
     if argv[:1] == ["--match-turn"]:
         return match_turn(*argv[1:3])
     if argv[:1] == ["--match-turns"]:

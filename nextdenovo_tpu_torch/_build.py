@@ -40,7 +40,7 @@ GXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
             "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0,
             "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0,
-            "sketch_select": 0, "sketch_emit": 0, "hpc_compress": 0,
+            "sketch_minimizers": 0, "hpc_compress": 0,
             "myers_streams": 0, "route_buckets": 0, "seed_symmetrize": 0}
 CARD_LAUNCHES = {}
 
@@ -209,10 +209,12 @@ def _load_kernels() -> ctypes.CDLL:
     lib.ndt_chain_emit.restype = ci
     lib.ndt_chain_emit.argtypes = [vp] * 7 + [ll, ci, ci, ci, ci, ci,
                                               ctypes.c_float, vp]
-    lib.ndt_sketch_select.restype = ci
-    lib.ndt_sketch_select.argtypes = [vp, ll] + [vp] * 7 + [ci] * 4 + [vp]
-    lib.ndt_sketch_emit.restype = ci
-    lib.ndt_sketch_emit.argtypes = [vp] * 6 + [ci, ci, ll, vp]
+    lib.ndt_sketch_minimizers.restype = ci
+    lib.ndt_sketch_minimizers.argtypes = [vp, ll] + [vp] * 5 + [ll, vp, vp,
+                                                                ll] \
+        + [ci] * 4 + [vp]
+    lib.ndt_sketch_layout.restype = ci
+    lib.ndt_sketch_layout.argtypes = [ci] * 4
     lib.ndt_hpc_compress.restype = ci
     lib.ndt_hpc_compress.argtypes = [vp, ll] + [vp] * 4 + [ci, ci, vp]
     lib.ndt_myers_streams.restype = ci

@@ -33,10 +33,11 @@
 //                    it, plus the ranks given so far; a row of rank below
 //                    cap writes its F fields.  The order is the rows' order,
 //                    torch.nonzero's, so the buckets equal the plain
-//                    version's.  (sketch.cu's sketch_emit takes its tile
-//                    counts from the kernel before it; here the counts are
-//                    made in the same launch, hence the barrier, which the
-//                    cooperative launch makes safe: every block is resident.)
+//                    version's.  (Every block needs every block's counts,
+//                    hence the barrier, which the cooperative launch makes
+//                    safe: every block is resident.  sketch.cu's
+//                    sketch_minimizers needs only the counts before it and
+//                    looks them back instead.)
 //   seed_symmetrize  one thread a raw record (qname, rev, qs, qe, tname, ts,
 //                    te, match; exclusive ends), both of its views at once:
 //                    the keep gate (q != t, both spans >= 500), the

@@ -14,8 +14,8 @@ pipeline stage sets it.
 
 `sketch`, `sketch_wide` and `hpc_compress` run their plain versions for CPU
 tensors.  For CUDA tensors they launch the kernels of csrc/sketch.cu:
-`sketch_select` (hashes, window minima and selection, a block a tile of a
-row) and `sketch_emit` (compaction in (row, position) order), and
+`sketch_minimizers` (hashes, window minima, selection and compaction in
+(row, position) order in one launch, a block a tile of a row) and
 `hpc_compress`; a sketch reads its selected count back once, its one host
 sync.  The plain versions build k-mers by log2(k) shift-or doubling and
 window minima by log2(w) min-shift doubling, and hold 32-bit unsigned
@@ -192,7 +192,7 @@ def _hashes(codes, lengths, k: int):
 
 def select_plain(codes, lengths, k: int, w: int, own_lo=None, own_hi=None,
                  pos_map=None, wide: bool = False):
-    """Plain version of sketch_select (any device): (h, strand, sel), each
+    """Plain version of the selection (any device): (h, strand, sel), each
     (B, L): the canonical hashes (UMAX where no k-mer counts), strands and
     the selected positions, window selection shared by sketch and
     sketch_wide (wide: sketch_wide's lanes, k <= 128).  pos_map: optional
@@ -225,7 +225,7 @@ def select_plain(codes, lengths, k: int, w: int, own_lo=None, own_hi=None,
 
 
 def emit_plain(h, strand, sel, cap: int, pos_map=None) -> Minimizers:
-    """Plain version of sketch_emit (any device): the selected positions
+    """Plain version of the compaction (any device): the selected positions
     compacted in (row, position) order, the first `cap` kept; `pos` reports
     pos_map's entry where it is given."""
     L = h.shape[1]
@@ -392,12 +392,24 @@ def sketch_wide_plain(codes: torch.Tensor, lengths: torch.Tensor, k: int,
 
 
 # --------------------------------------------------------------------------
-# The device program: three hand-written CUDA kernels (csrc/sketch.cu).  The
+# The device program: two hand-written CUDA kernels (csrc/sketch.cu).  The
 # wrappers take the plain versions above for CPU tensors only.
 
-SKETCH_TILE = 1024        # positions a block of sketch_select / sketch_emit
+SKETCH_THREADS = 256      # threads a block of sketch_minimizers
 SKETCH_W_MAX = 2048       # windows the kernels take at most
 SKETCH_K_MAX = 143        # 9 lanes of 32 bits: k <= 16 * 9 - 1
+
+
+def sketch_tile(w: int, per: int = 0):
+    """(np, tile) of a sketch_minimizers block at window w: it hashes np =
+    SKETCH_THREADS * per positions and owns the tile = np - 2 (w - 1) of
+    them between its halos.  The least per (per = 0) is 2 up to w = 129,
+    then as many as keep the tile at SKETCH_THREADS or more; the kernel
+    takes 4 instead of 2 where a launch of 2 a thread would not fit on the
+    card at once (ndt_sketch_layout)."""
+    least = max(2, -(-(2 * (w - 1) + SKETCH_THREADS) // SKETCH_THREADS))
+    n = SKETCH_THREADS * max(per, least)
+    return n, n - 2 * (w - 1)
 
 
 def _codes_pitch(codes: torch.Tensor) -> int:
@@ -455,20 +467,18 @@ def _hpc_launch(codes, lengths):
 
 
 class _Buffers(NamedTuple):
-    """One sketch launch's inputs as the kernels take them and its
-    buffers: hsh (B, L) int32 (uint32 hashes), flags (B, L) uint8, counts
-    one int32 a block, out (4, stride) int64, n_all (1,) int64."""
+    """One sketch launch's inputs as the kernel takes them and its
+    buffers: out (4, stride) int64, n_all (1,) int64, status (G + 1,)
+    int64 (a status word a tile of the look-back, then the ticket)."""
     codes: torch.Tensor
     pitch: int
     lens: torch.Tensor
     own_lo: object
     own_hi: object
     pos_map: object
-    hsh: torch.Tensor
-    flags: torch.Tensor
-    counts: torch.Tensor
     out: torch.Tensor
     n_all: torch.Tensor
+    status: torch.Tensor
 
 
 def _buffers(codes, lengths, k: int, w: int, cap: int, own_lo=None,
@@ -487,53 +497,42 @@ def _buffers(codes, lengths, k: int, w: int, cap: int, own_lo=None,
     if pos_map is not None:
         check_tensor("pos_map", pos_map, (B, L), torch.int64, dev)
     e = lambda *s, dt: torch.empty(s, dtype=dt, device=dev)
+    tile = sketch_tile(w)[1]
     return _Buffers(
         codes, pitch, lens, own_lo, own_hi, pos_map,
-        hsh=e(B, L, dt=torch.int32), flags=e(B, L, dt=torch.uint8),
-        counts=e(B * -(-L // SKETCH_TILE), dt=torch.int32),
         out=e(4, max(0, min(cap, B * L)), dt=torch.int64),
-        n_all=e(1, dt=torch.int64))
+        n_all=e(1, dt=torch.int64),
+        status=e(B * -(-L // tile) + 1, dt=torch.int64))
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _select_launch(lib, sb: _Buffers, k: int, w: int) -> None:
-    """One launch of sketch_select_kernel on the current device."""
-    B, L = sb.hsh.shape
-    rc = lib.ndt_sketch_select(
+def _minimizers_launch(lib, sb: _Buffers, k: int, w: int) -> None:
+    """One launch of sketch_minimizers_kernel on the current device (its
+    status words zeroed first on the same stream)."""
+    B, L = sb.codes.shape
+    rc = lib.ndt_sketch_minimizers(
         sb.codes.data_ptr(), sb.pitch, sb.lens.data_ptr(), _ptr(sb.own_lo),
-        _ptr(sb.own_hi), _ptr(sb.pos_map), sb.hsh.data_ptr(),
-        sb.flags.data_ptr(), sb.counts.data_ptr(), B, L, k, w,
-        _stream(sb.hsh.device))
-    _build.check_launch("sketch_select", rc)
-
-
-def _emit_launch(lib, sb: _Buffers) -> None:
-    """One launch of sketch_emit_kernel on the current device."""
-    B, L = sb.hsh.shape
-    rc = lib.ndt_sketch_emit(
-        sb.hsh.data_ptr(), sb.flags.data_ptr(), sb.counts.data_ptr(),
-        _ptr(sb.pos_map), sb.out.data_ptr(), sb.n_all.data_ptr(), B, L,
-        sb.out.shape[1], _stream(sb.hsh.device))
-    _build.check_launch("sketch_emit", rc)
+        _ptr(sb.own_hi), _ptr(sb.pos_map), sb.out.data_ptr(),
+        sb.out.shape[1], sb.n_all.data_ptr(), sb.status.data_ptr(),
+        sb.status.shape[0], B, L, k, w, _stream(sb.codes.device))
+    _build.check_launch("sketch_minimizers", rc)
 
 
 def _sketch_launch(codes, lengths, k: int, w: int, cap: int, own_lo, own_hi,
                    pos_map=None) -> Minimizers:
-    """sketch_select and sketch_emit on codes' device, then n_all read
-    back: the call's one host sync."""
+    """sketch_minimizers on codes' device, then n_all read back: the call's
+    one host sync."""
     dev = codes.device
     sb = _buffers(codes, lengths, k, w, cap, own_lo, own_hi, pos_map)
     n_all = 0
-    if sb.hsh.numel():
+    if codes.numel():
         lib = _build.kernels()
         with torch.cuda.device(dev):
-            _select_launch(lib, sb, k, w)
-            _build.count_launch("sketch_select", dev)
-            _emit_launch(lib, sb)
-            _build.count_launch("sketch_emit", dev)
+            _minimizers_launch(lib, sb, k, w)
+            _build.count_launch("sketch_minimizers", dev)
         n_all = int(sb.n_all)
     n = min(n_all, sb.out.shape[1])
     rid, pos, h, strand = sb.out[:, :n].unbind(0)
@@ -554,8 +553,8 @@ def sketch(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     reads: each chunk owns a disjoint slice, the halos make the window
     minima around the slice identical to a full-read computation.
 
-    CPU tensors run sketch_plain; CUDA tensors launch sketch_select and
-    sketch_emit, then read the selected count: one host sync."""
+    CPU tensors run sketch_plain; CUDA tensors launch sketch_minimizers,
+    then read the selected count: one host sync."""
     if codes.device.type == "cpu":
         return sketch_plain(codes, lengths, k, w, cap, own_lo, own_hi)
     assert 1 <= k <= 31
@@ -572,7 +571,7 @@ def sketch_wide(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     halo-chunking hook (see sketch()).
 
     CPU tensors run sketch_wide_plain; CUDA tensors launch hpc_compress
-    (under hpc), sketch_select and sketch_emit: one host sync."""
+    (under hpc) and sketch_minimizers: one host sync."""
     if codes.device.type == "cpu":
         return sketch_wide_plain(codes, lengths, k, w, cap, hpc, own_lo,
                                  own_hi)

@@ -137,7 +137,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     assert sorted(_build.LAUNCHES) == sorted(
         ["myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
          "wave_fast_fwd", "wave_fast_tb", "engine_anchor", "vote_corridor",
-         "chain_emit", "sketch_select", "sketch_emit", "hpc_compress",
+         "chain_emit", "sketch_minimizers", "hpc_compress",
          "myers_streams", "route_buckets", "seed_symmetrize"])
     for mod, name in ((myers, "myers_fwd_plain"), (myers, "myers_tb_plain"),
                       (align, "wave_fwd_plain"), (align, "wave_tb_plain"),
@@ -242,4 +242,4 @@ def test_kernels_match_plain_on_the_card():
     res.update(chip_smoke.compare_ext_kernel(eq, et, dev, "test"))
     res.update(chip_smoke.sketch_sets(dev, rng, ks=(15, 51), ws=(5, 51),
                                       slices=((15, 5), (51, 51))))
-    assert len(res) == 10 and all(v["exact"] for v in res.values())
+    assert len(res) == 9 and all(v["exact"] for v in res.values())
