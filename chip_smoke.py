@@ -113,29 +113,36 @@ Phases, each of which fails the run (non-zero exit) when it fails:
              prints the stage walls, the launches by stage, the peak memory
              and how many corrected reads are byte-equal to main_path's
              (on a machine of several cards, on the first only)
-  route      myers_streams, route_buckets, seed_symmetrize and the mesh
+  route      myers_streams, the routing kernels (route_count and
+             route_scatter through mesh.bucketize, seed_route_count and
+             seed_route_scatter through dist_sort.seed_route) and the mesh
              lookup's engine_anchor against their plain versions on the
              card, every output bit for bit: build_streams on empty queries
              and targets, m = n, m >> n, off at 16 and W - 16, B = 1, B =
-             5120 and the main path's launch shape; bucketize on n = 1, 2, 8
-             and 512, truncating caps, destinations outside the mesh, N = 0,
-             a launch of 1.3 M rows x 4 fields and the mesh path's own
-             calls of 4, 5 and 8 fields (recorded during mesh_path); the
-             mesh path's lookup of one shard's received minimizers with the
-             pair-once gate and without it; seed_symmetrize on the mesh
-             path's records of one shard and on records with ids negative,
-             past the reads and equal.  One host sync a bucketize call
-             (counted; more fails the run), and the syncs of one
-             myers_align sub-batch, counted.  Every path's run launched
+             5120 and the main path's launch shape; bucketize on n = 1, 2,
+             8, 512 and 4096, truncating caps, cap = 0, every row outside,
+             destinations outside the mesh, N = 0, a launch of 1.3 M rows x
+             4 fields and the mesh path's own calls of 4 and 5 fields
+             (recorded during mesh_path) and its seed route's views as an
+             8-field call; seed_route on the mesh path's records of one
+             shard, on records with ids negative, past the reads and equal,
+             with a truncating cap and at n = 1, 2 and 4096; the mesh path's
+             lookup of one shard's received minimizers with the pair-once
+             gate and without it.  One host sync a bucketize call and a
+             seed_route call (counted; more fails the run), and the syncs of
+             one myers_align sub-batch, counted.  Every path's run launched
              myers_streams as often as myers_fwd; mesh_path (and
-             mesh_cards) route_buckets, seed_symmetrize and engine_anchor.
-             Then their times: myers_streams at the main path's launch
-             shape (alone, beside the replaced ops on the pads and their
-             device kernels, and the host's row fill against the one
-             copy), route_buckets on the mesh path's stage-01 sketch route,
-             seed_symmetrize on its records (each alone and beside the
-             plain steps on the card) and the mesh lookup by engine_anchor
-             against the plain lookup; the recorded calls are then freed
+             mesh_cards) the routing kernels and engine_anchor.  Then their
+             times: myers_streams at the main path's launch shape (alone,
+             beside the replaced ops on the pads and their device kernels,
+             and the host's row fill against the one copy); bucketize on
+             the mesh path's stage-01 sketch route and on its lookup's
+             route back, seed_route on the sort's records of one shard:
+             the count and scatter launches alone and together, the
+             wrapper's call and its device operations, the plain version
+             on the card, one stable torch.sort of the destinations, the
+             grid and the bound; the mesh lookup by engine_anchor against
+             the plain lookup; the recorded calls are then freed
   mesh_groups
              the shards in two groups on the one card (two host threads
              against one device) against one group, on the main path's
@@ -203,11 +210,12 @@ line of stdout is {"ok": true, "device": {...}}; the line before the card
 line holds {"kernels": [...]}: the kernels' launches are read from the
 task = all run, the extender's from the task = assemble run, the R = 1
 pair's from the band_align(R=1) run, hpc_compress's from the HiFi reads'
-hpc index build, route_buckets' and seed_symmetrize's from the
-use_mesh = 8 run; `library_ms` is one PyTorch call's time on the same
-inputs where one computes the kernel's function, else null (none
-computes the sketch: its `nonzero_ms` is torch.nonzero of the selected
-flags, the compaction's indices alone); `launches_hifi` holds each kernel's
+hpc index build, the routing kernels' from the use_mesh = 8 run;
+`library_ms` is one PyTorch call's time on the same inputs where one
+computes the kernel's function, else null (none computes the sketch: its
+`nonzero_ms` is torch.nonzero of the selected flags, the compaction's
+indices alone; none the routing: its `sort_ms` is one stable torch.sort of
+the destinations, a yardstick); `launches_hifi` holds each kernel's
 launches on the HiFi run, `launches_multihost` its launches in each host
 process of the two-host run, `launches_mesh` its launches on the
 use_mesh = 8 run, `launches_mesh_cards` on the use_mesh = 8 run over the
@@ -273,10 +281,17 @@ KERNEL_INFO = {
                          replaces="nextdenovo_tpu/ops/sketch.py:281"),
     "myers_streams": dict(source="nextdenovo_tpu_torch/csrc/streams.cu",
                           replaces="nextdenovo_tpu/ops/myers.py:445"),
-    "route_buckets": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
+    # mesh.bucketize: its count and its scatter
+    "route_count": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
+                        replaces="nextdenovo_tpu/parallel/dist_overlap.py:37"),
+    "route_scatter": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
                           replaces="nextdenovo_tpu/parallel/dist_overlap.py:37"),
-    "seed_symmetrize": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
-                            replaces="nextdenovo_tpu/parallel/dist_sort.py:34"),
+    # dist_sort.seed_route: the same kernels with the raw records as rows
+    "seed_route_count": dict(source="nextdenovo_tpu_torch/csrc/route.cu",
+                             replaces="nextdenovo_tpu/parallel/dist_sort.py:34"),
+    "seed_route_scatter": dict(
+        source="nextdenovo_tpu_torch/csrc/route.cu",
+        replaces="nextdenovo_tpu/parallel/dist_sort.py:34"),
 }
 # the path a kernel's launches are read from, where it is not the task = all
 # run
@@ -285,7 +300,9 @@ HPC_PATH = "build_index(hpc=True) of the HiFi path's reads"
 MESH_PATH = "task = all, use_mesh = 8"
 KERNEL_PATH = {"wave_fast_fwd": FAST_PATH, "wave_fast_tb": FAST_PATH,
                "ext_fwd": EXT_PATH, "hpc_compress": HPC_PATH,
-               "route_buckets": MESH_PATH, "seed_symmetrize": MESH_PATH}
+               "route_count": MESH_PATH, "route_scatter": MESH_PATH,
+               "seed_route_count": MESH_PATH,
+               "seed_route_scatter": MESH_PATH}
 FAST_PATH_KERNELS = ("wave_fast_fwd", "wave_fast_tb")
 
 
@@ -2313,10 +2330,10 @@ def plain_launches(fn):
 
 
 def sketch_sass(src):
-    """{kernel: dict(registers, spill_bytes, sass)} of a sketch.cu source
-    for sm_90a: `nvcc -Xptxas -v` to a cubin, and the SASS instructions of
-    each kernel (a template instance named with its argument) counted in
-    `cuobjdump -sass`."""
+    """{kernel: dict(registers, spill_bytes, stack_bytes, sass)} of a CUDA
+    source of csrc/ (sketch.cu, route.cu) for sm_90a: `nvcc -Xptxas -v` to a
+    cubin, and the SASS instructions of each kernel (a template instance
+    named with its int or bool argument) counted in `cuobjdump -sass`."""
     import re
     from nextdenovo_tpu_torch import _build
     nvcc = _build.find_nvcc()
@@ -2332,7 +2349,7 @@ def sketch_sass(src):
                            check=True).stdout
 
     def short(mangled):
-        m = re.search(r"(\w+?_kernel)(?:ILi(\d+)E)?", mangled)
+        m = re.search(r"(\w+?_kernel)(?:IL[ib](\d+)E)?", mangled)
         return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
 
     out, cur = {}, None
@@ -2340,8 +2357,12 @@ def sketch_sass(src):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = short(m.group(1))
-            out[cur] = dict(registers=None, spill_bytes=None, sass=0)
+            out[cur] = dict(registers=None, spill_bytes=None,
+                            stack_bytes=None, sass=0)
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and cur:
+            out[cur]["stack_bytes"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and cur:
@@ -3153,9 +3174,11 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS,
     the launches by stage, the peak device memory and how many corrected
     reads are byte-equal to the main path's (the mesh path aligns long
     supports whole, so not all need be).  With capture, the run's first
-    lookups, bucketings and symmetrize pass go into MESH_CALLS for
-    phase_route and route_timing.  Returns the launch counts and the peak
-    device memory."""
+    lookups, bucketings and seed route go into MESH_CALLS for phase_route
+    and route_timing, and the peak device memory of each Mesh.for_each_card
+    phase is printed (a synchronise and a reset of the peak around each;
+    the run's peak is the largest over them and the gaps between).
+    Returns the launch counts and the peak device memory."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch import _build
@@ -3179,12 +3202,20 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS,
     one = (["--device", f"cuda:{torch.cuda.current_device()}"]
            if torch.cuda.device_count() > 1 else [])
     t0 = time.time()
-    with (capture_mesh_calls() if capture else contextlib.nullcontext()):
+    with (capture_mesh_calls() if capture else contextlib.nullcontext()), \
+            (phase_memory() if capture else contextlib.nullcontext()) as mem:
         rc = cli_main(["run", cfg_p] + one)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    if mem is not None:
+        peak = max(peak, mem.top)
+        log("[mesh_path] peak device memory by phase (MiB; calls, then "
+            "before, peak, after of the call with the highest peak): "
+            + "; ".join(f"{name} {k}: {b / 2**20:.1f}, {pk / 2**20:.1f}, "
+                        f"{a / 2**20:.1f}"
+                        for name, (k, b, pk, a) in mem.phases.items()))
     if rc != 0:
         raise RuntimeError(f"CLI entry returned {rc}")
     log(f"[mesh_path] task=all use_mesh={n_shards} wall {wall:.1f}s, peak "
@@ -3210,15 +3241,15 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS,
     for st in ("03.seed_cns", "04.cns_align", "06.ctg_cns"):
         if in_stage[st].get("myers_fwd", 0) < 1:
             raise RuntimeError(f"the mesh run launched no myers_fwd in {st}")
-    # the mesh overlap step routes with route_buckets, looks up with
-    # engine_anchor and votes with _vote_emit; the sort symmetrizes and
-    # routes its records
+    # the mesh overlap step routes with route_count and route_scatter,
+    # looks up with engine_anchor and votes with _vote_emit; the sort routes
+    # its raw records by seed
     for st in ("01.raw_align", "04.cns_align", "06.ctg_cns"):
         for n in ("vote_corridor", "chain_emit", "engine_anchor",
-                  "route_buckets"):
+                  *BUCKET_KERNELS):
             if in_stage[st].get(n, 0) < 1:
                 raise RuntimeError(f"the mesh run launched no {n} in {st}")
-    for n in ROUTE_KERNELS:
+    for n in SEED_ROUTE_KERNELS:
         if in_stage["02.sort_align"].get(n, 0) < 1:
             raise RuntimeError(f"the mesh run launched no {n} in "
                                f"02.sort_align")
@@ -3254,6 +3285,42 @@ def phase_mesh_path(dev, workdir, sim, genome, n_shards=MESH_SHARDS,
     _check_result("mesh_path", dev, wd, sim, genome)
     _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards)
     return launches, peak
+
+
+class phase_memory:
+    """Within the block, each Mesh.for_each_card phase on the current card
+    runs between two synchronises with the peak memory reset before it:
+    `phases` {name: (calls, before, peak, after)} keeps the call of the
+    highest peak, `top` the highest peak read before any reset (the gaps
+    between phases included)."""
+
+    def __enter__(self):
+        import torch
+        from nextdenovo_tpu_torch.parallel import mesh as MS
+        self.phases, self.top, self.each = {}, 0, MS.Mesh.for_each_card
+        each = self.each
+
+        def measured(mesh, name, fn):
+            torch.cuda.synchronize()
+            self.top = max(self.top, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = each(mesh, name, fn)
+            torch.cuda.synchronize()
+            pk = torch.cuda.max_memory_allocated()
+            self.top = max(self.top, pk)
+            k, *was = self.phases.get(name, (0, 0, -1, 0))
+            self.phases[name] = (k + 1, before, pk,
+                                 torch.cuda.memory_allocated()) \
+                if pk > was[1] else (k + 1, *was)
+            return out
+
+        MS.Mesh.for_each_card = measured
+        return self
+
+    def __exit__(self, *exc):
+        from nextdenovo_tpu_torch.parallel import mesh as MS
+        MS.Mesh.for_each_card = self.each
 
 
 def _mesh_cns_witness(wd, cfg_p, mesh_cns, n_shards, n_long=2):
@@ -3609,15 +3676,17 @@ def _anchor(c, g, k=25, tries=20):
 
 
 # ---------------------------------------------------------------------------
-# the Myers streams and the mesh path's routing (myers_streams,
-# route_buckets, seed_symmetrize, engine_anchor on the mesh lookup)
+# the Myers streams and the mesh path's routing (myers_streams, the routing
+# kernels of csrc/route.cu, engine_anchor on the mesh lookup)
 
-ROUTE_KERNELS = ("route_buckets", "seed_symmetrize")
+# the launches of mesh.bucketize and of dist_sort.seed_route
+BUCKET_KERNELS = ("route_count", "route_scatter")
+SEED_ROUTE_KERNELS = ("seed_route_count", "seed_route_scatter")
+ROUTE_KERNELS = BUCKET_KERNELS + SEED_ROUTE_KERNELS
 # the calls of the mesh path's run that phase_route and route_timing replay
 # on the card: dist_overlap's lookups (one with the pair-once gate, one
 # without, where the run made them), the first bucketing of each kind
-# (sketch_route: 4 fields, lookup_route: 5, the sort's route: 8) and the
-# sort's first symmetrize pass
+# (sketch_route: 4 fields, lookup_route: 5) and the sort's first seed route
 MESH_CALLS = {}
 
 
@@ -3639,8 +3708,8 @@ def mesh_call(key, dev):
 
 class capture_mesh_calls:
     """Within the block, the mesh path's first calls of dist_overlap._lookup
-    (gate on, gate off), of bucketize by field count and of
-    dist_sort.seed_symmetrize are recorded into MESH_CALLS (their arguments,
+    (gate on, gate off), of dist_overlap's bucketize by field count and of
+    dist_sort.seed_route are recorded into MESH_CALLS (their arguments,
     copied to the host, so that the run's peak device memory stays its own)
     and run as they would."""
 
@@ -3650,8 +3719,7 @@ class capture_mesh_calls:
         MESH_CALLS.clear()
         self.saved = [(DO, "_lookup", DO._lookup),
                       (DO, "bucketize", DO.bucketize),
-                      (DS, "bucketize", DS.bucketize),
-                      (DS, "seed_symmetrize", DS.seed_symmetrize)]
+                      (DS, "seed_route", DS.seed_route)]
 
         def record(key, args):
             if key not in MESH_CALLS:
@@ -3667,12 +3735,12 @@ class capture_mesh_calls:
                    (tuple(fields), dest, valid, n, cap))
             return _f(fields, dest, valid, n, cap)
 
-        def symmetrize(rec, is_seed, lens, n, _f=DS.seed_symmetrize):
-            record("seed_symmetrize", (rec, is_seed, lens, n))
-            return _f(rec, is_seed, lens, n)
+        def seed_route(rec, is_seed, lens, n, cap, _f=DS.seed_route):
+            record("seed_route", (rec, is_seed, lens, n, cap))
+            return _f(rec, is_seed, lens, n, cap)
 
         DO._lookup, DO.bucketize = lookup, bucketize
-        DS.bucketize, DS.seed_symmetrize = bucketize, symmetrize
+        DS.seed_route = seed_route
         return self
 
     def __exit__(self, *exc):
@@ -3723,9 +3791,18 @@ def streams_sets(rng):
     yield "the main path's launch shape (640 x 11000-12288)", qs, ts, None
 
 
+def _seed_views(rec, is_seed, lens, n, cap):
+    """The seed route's call as bucketize's: the views of
+    seed_symmetrize_plain (on the records' device) and their bucketing."""
+    from nextdenovo_tpu_torch.parallel import dist_sort as DS
+    cols, valid, dest = DS.seed_symmetrize_plain(rec, is_seed, lens, n)
+    return tuple(cols.unbind(0)), dest, valid, n, cap
+
+
 def _route_sets(rng, dev):
-    """(tag, fields, dest, valid, n, cap) of phase_route's route_buckets
-    sets."""
+    """(tag, fields, dest, valid, n, cap) of phase_route's bucketize sets:
+    synthetic ones, and the mesh path's recorded calls (4 fields: stage 01's
+    sketch route; 5: the lookup's route back; 8: the seed route's views)."""
     import torch
     i64 = torch.int64
 
@@ -3747,47 +3824,72 @@ def _route_sets(rng, dev):
     yield ("n = 8, destinations outside the mesh, a truncating cap",
            *case(50000, 8, 8, 0.05, 0.7), 8, 4000)
     yield ("N = 0", *case(0, 8, 4), 8, 100)
+    yield ("cap = 0", *case(9000, 8, 3, 0.05), 8, 0)
+    yield ("every row outside", *case(7000, 4, 2, 1.0), 4, 100)
     yield ("n = 512", *case(300000, 512, 2, 0.01, 0.9), 512, 10**6)
+    yield ("n = 4096", *case(400000, 4096, 3, 0.01, 0.9), 4096, 10**6)
+    yield ("n = 4096, a cap of 20", *case(200000, 4096, 1), 4096, 20)
     yield ("a mesh-sized launch (1.3 M rows x 4 fields, n = 8)",
            *case(1_300_000, 8, 4), 8, 10**7)
-    for key in ("bucketize_4", "bucketize_5", "bucketize_8"):
+    for key in ("bucketize_4", "bucketize_5"):
         if key in MESH_CALLS:
-            fields, dest, valid, n, cap = mesh_call(key, dev)
-            yield (f"the mesh path's {key[-1]}-field call", fields, dest,
-                   valid, n, cap)
+            yield (f"the mesh path's {key[-1]}-field call",
+                   *mesh_call(key, dev))
+    if "seed_route" in MESH_CALLS:
+        yield ("the mesh path's seed route as an 8-field call",
+               *_seed_views(*mesh_call("seed_route", dev)))
 
 
-def _same_buckets(tag, got, want):
-    """bucketize's (buckets, counts) on the card against bucketize_plain's
-    on the card, exactly."""
+def _same_buckets(tag, got, want, name="bucketize"):
+    """A routing call's (buckets, counts) on the card against its plain
+    version's on the card, exactly."""
     import numpy as np
     (gb, gc), (wb, wc) = got, want
     if not np.array_equal(gc, wc):
-        raise RuntimeError(f"route_buckets: counts differ on '{tag}': {gc} "
+        raise RuntimeError(f"{name}: counts differ on '{tag}': {gc} "
                            f"against {wc}")
     err = 0.0
     for d, (a, b) in enumerate(zip(gb, wb)):
+        if len(a) != len(b):
+            raise RuntimeError(f"{name}: bucket {d} has {len(a)} fields on "
+                               f"'{tag}', not {len(b)}")
         for f, (x, y) in enumerate(zip(a, b)):
             ok, e = _tensors_equal(x, y)
             err = max(err, e)
             if not ok:
-                raise RuntimeError(f"route_buckets: bucket {d}, field {f} "
+                raise RuntimeError(f"{name}: bucket {d}, field {f} "
                                    f"differs on '{tag}'")
     return err
 
 
+def _bad_records(rec, lens):
+    """The records with ids negative, past the reads, and equal."""
+    import torch
+    bad = rec.clone()
+    R, dev = bad.shape[0], rec.device
+    bad[: R // 8, 0] = -torch.arange(1, R // 8 + 1, device=dev)
+    bad[R // 8 : R // 4, 4] = lens.shape[0] + torch.arange(R // 8,
+                                                           device=dev)
+    bad[R // 4 : R // 3, 4] = bad[R // 4 : R // 3, 0]
+    return bad
+
+
 def phase_route(dev):
-    """myers_streams, route_buckets, seed_symmetrize and the mesh lookup's
-    engine_anchor against their plain versions on the card, every output
-    exact: build_streams on the sets of streams_sets; bucketize on n = 1, 2,
-    8 and 512, truncating caps, destinations outside the mesh, N = 0, a
-    mesh-sized launch and the mesh path's own calls of each field count;
-    the mesh path's lookups (engine_anchor against _lookup_plain) with the
-    pair-once gate and without it; seed_symmetrize on the mesh path's raw
-    records of one shard and on records with ids out of range, negative or
-    equal.  The host syncs of one bucketize call (it must be one) and of
-    one myers_align sub-batch, counted.  Returns {name: exact, max_abs_err}
-    for the kernels line."""
+    """myers_streams, the routing kernels (route_count and route_scatter
+    through mesh.bucketize; seed_route_count and seed_route_scatter through
+    dist_sort.seed_route) and the mesh lookup's engine_anchor against their
+    plain versions on the card, every output exact: build_streams on the
+    sets of streams_sets; bucketize on n = 1, 2, 8, 512 and 4096,
+    truncating caps, cap = 0, every row outside, destinations outside the
+    mesh, N = 0, a mesh-sized launch and the mesh path's recorded calls of
+    4 and 5 fields and its seed route's views as an 8-field call;
+    seed_route on the mesh path's raw records of one shard, on records with
+    ids out of range, negative or equal, with a truncating cap and at
+    n = 1, 2 and 4096; the mesh path's lookups (engine_anchor against
+    _lookup_plain) with the pair-once gate and without it.  The host syncs
+    of one bucketize call and of one seed_route call (each must be one) and
+    of one myers_align sub-batch, counted.  Returns {name: exact,
+    max_abs_err} for the kernels line."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch.ops import myers as M
@@ -3795,9 +3897,8 @@ def phase_route(dev):
     from nextdenovo_tpu_torch.parallel import dist_sort as DS
     from nextdenovo_tpu_torch.parallel import mesh as MS
     rng = np.random.default_rng(19)
-    res = {"myers_streams": dict(exact=True, max_abs_err=0.0),
-           "route_buckets": dict(exact=True, max_abs_err=0.0),
-           "seed_symmetrize": dict(exact=True, max_abs_err=0.0)}
+    res = {k: dict(exact=True, max_abs_err=0.0)
+           for k in ("myers_streams",) + ROUTE_KERNELS}
     for tag, qs, ts, off in streams_sets(rng):
         si = streams_inputs(qs, ts, dev, off)
         got = M.build_streams(*si["args"], nw=8, n_pad=si["n_pad"])
@@ -3815,15 +3916,20 @@ def phase_route(dev):
     _, n_sync, at = count_syncs(lambda: M.myers_align(qs, ts, device=dev))
     log(f"[route] host syncs of one myers_align sub-batch (640 pairs): "
         f"{n_sync} at {at}")
+
+    def held(name, tag, got, want):
+        err = _same_buckets(tag, got, want, name)
+        for k in (BUCKET_KERNELS if name == "bucketize"
+                  else SEED_ROUTE_KERNELS):
+            res[k]["max_abs_err"] = max(res[k]["max_abs_err"], err)
+
     for tag, fields, dest, valid, n, cap in _route_sets(rng, dev):
         got = MS.bucketize(fields, dest, valid, n, cap)
-        want = MS.bucketize_plain(fields, dest, valid, n, cap)
-        err = _same_buckets(tag, got, want)
-        log(f"[route] route_buckets = plain on '{tag}' ({dest.shape[0]} "
-            f"rows, {len(fields)} fields, counts {got[1].tolist()[:9]}"
-            f"{' ...' if n > 8 else ''}, cap {cap})")
-        res["route_buckets"]["max_abs_err"] = max(
-            res["route_buckets"]["max_abs_err"], err)
+        held("bucketize", tag, got,
+             MS.bucketize_plain(fields, dest, valid, n, cap))
+        log(f"[route] bucketize (route_count, route_scatter) = plain on "
+            f"'{tag}' ({dest.shape[0]} rows, {len(fields)} fields, counts "
+            f"{got[1].tolist()[:9]}{' ...' if n > 8 else ''}, cap {cap})")
         if tag.startswith("n = 8"):
             sync_case = (fields, dest, valid, n, cap)
     _, n_sync, at = count_syncs(lambda: MS.bucketize(*sync_case))
@@ -3831,7 +3937,33 @@ def phase_route(dev):
     if n_sync != 1:
         raise RuntimeError(f"one bucketize call made {n_sync} host syncs "
                            f"(one expected)")
-    res["route_buckets"]["host_syncs"] = n_sync
+    res["route_count"]["host_syncs"] = n_sync
+
+    if "seed_route" not in MESH_CALLS:
+        raise RuntimeError("the mesh path's run made no seed route")
+    rec, is_seed, lens, n, cap = mesh_call("seed_route", dev)
+    bad = _bad_records(rec, lens)
+    R = rec.shape[0]
+    sets = [("the mesh path's raw records of one shard", rec, n, cap),
+            ("ids negative, past the reads, equal", bad, n, cap),
+            ("a truncating cap", rec, n, max(1, R // (4 * n))),
+            ("n = 1", bad, 1, 2 * R), ("n = 2", rec, 2, 2 * R),
+            ("n = 4096", bad, 4096, 2 * R)]
+    for tag, r8, n_, cap_ in sets:
+        got = DS.seed_route(r8, is_seed, lens, n_, cap_)
+        want = DS.seed_route_plain(r8, is_seed, lens, n_, cap_)
+        held("seed_route", tag, got, want)
+        log(f"[route] seed_route (seed_route_count, seed_route_scatter) = "
+            f"plain on '{tag}' ({R} records, {int(want[1].sum())} views "
+            f"kept, n = {n_}, cap {cap_})")
+    _, n_sync, at = count_syncs(lambda: DS.seed_route(rec, is_seed, lens, n,
+                                                      cap))
+    log(f"[route] host syncs of one seed_route call: {n_sync} at {at}")
+    if n_sync != 1:
+        raise RuntimeError(f"one seed_route call made {n_sync} host syncs "
+                           f"(one expected)")
+    res["seed_route_count"]["host_syncs"] = n_sync
+
     lookups = [(k, v) for k, v in MESH_CALLS.items()
                if k.startswith("lookup")]
     if not lookups:
@@ -3849,36 +3981,94 @@ def phase_route(dev):
         log(f"[route] the mesh lookup by engine_anchor = _lookup_plain "
             f"{tag} ({recv[0].shape[0]} received minimizers of a shard, "
             f"{got[0].shape[0]} anchors)")
-    if "seed_symmetrize" not in MESH_CALLS:
-        raise RuntimeError("the mesh path's run made no symmetrize pass")
-    rec, is_seed, lens, n = mesh_call("seed_symmetrize", dev)
-    bad = rec.clone()
-    R = bad.shape[0]
-    bad[: R // 8, 0] = -torch.arange(1, R // 8 + 1, device=dev)
-    bad[R // 8 : R // 4, 4] = lens.shape[0] + torch.arange(R // 8,
-                                                           device=dev)
-    bad[R // 4 : R // 3, 4] = bad[R // 4 : R // 3, 0]
-    for tag, r8 in (("the mesh path's raw records of one shard", rec),
-                    ("ids negative, past the reads, equal", bad)):
-        got = DS.seed_symmetrize(r8, is_seed, lens, n)
-        want = DS.seed_symmetrize_plain(r8, is_seed, lens, n)
-        r = {}
-        _record(r, tag, "seed_symmetrize", got, want)
-        log(f"[route] seed_symmetrize = plain on '{tag}' ({R} records, "
-            f"{int(want[1].sum())} views kept)")
     return res
+
+
+class PreparedRoute:
+    """A routing call's two launches with their inputs made once, so that
+    each can be timed alone: `count()` (route_count, or seed_route_count),
+    then `scatter()` (route_scatter, or seed_route_scatter; past 64
+    destinations the pointer table's copy first) into buckets allocated
+    from the first count's totals.  rl: the launches, mesh.bucket_launches
+    or dist_sort.seed_route_launches of any library."""
+
+    def __init__(self, dev, rl):
+        import torch
+        from nextdenovo_tpu_torch.parallel import mesh as MS
+        self.rl, self.n, self.tiles = rl, rl.n, rl.tiles
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.sc = MS.route_scratch(dev, rl.rows, rl.tiles, rl.n)
+        self.ticket = MS.route_ticket(dev)
+        self.count()
+        self.counts = self.sc.counts.cpu().numpy()
+        self.out, self.dst = MS.route_buckets(self.counts, rl.n, rl.cap,
+                                              rl.F, dev)
+
+    def count(self):
+        rc = self.rl.count(self.sc, self.ticket, self.stream)
+        if rc:
+            raise RuntimeError(f"{self.rl.name}_count failed: error {rc}")
+
+    def scatter(self):
+        rc = self.rl.scatter(self.sc, self.dst, self.stream)
+        if rc:
+            raise RuntimeError(f"{self.rl.name}_scatter failed: error {rc}")
+
+    def both(self):
+        self.count()
+        self.scatter()
+
+    def buckets(self):
+        """(buckets, counts) as the wrapper returns them, after a
+        scatter."""
+        return [o.unbind(0) for o in self.out], self.counts
+
+
+def _route_shape_timing(tag, call, plain, launches, sort_keys, byt,
+                        count_byt, reps):
+    """One routing shape's times: each launch alone and both (after a
+    device sleep), the wrapper's whole call and its device operations, the
+    plain version on the card and its device kernels, one stable
+    torch.sort of the destinations (the yardstick), the bounds."""
+    import torch
+    from nextdenovo_tpu_torch import _build
+    count_ms = _events_ms(launches.count, reps)
+    scatter_ms = _events_ms(launches.scatter, reps)
+    both_ms = _events_ms(launches.both, reps)
+    _, call_ms = timed(call, reps)
+    _, plain_ms = timed(plain, 3)
+    sort_ms = _events_ms(lambda: torch.sort(sort_keys, stable=True), reps)
+    got, want = call(), plain()
+    err = _same_buckets(tag, got, want)
+    resident = _build.kernels().ndt_route_resident(launches.n)
+    return dict(
+        exact=True, max_abs_err=err, count_ms=count_ms,
+        scatter_ms=scatter_ms, launches_ms=both_ms, wrapper_ms=call_ms,
+        plain_ms=plain_ms, sort_ms=sort_ms,
+        call_device_ops=plain_launches(call),
+        plain_call_launches=plain_launches(plain),
+        tiles=launches.tiles, resident_blocks_an_sm=resident,
+        **_bound(byt, 0), count_bound_ms=_bound(count_byt, 0)["bound_ms"],
+        scatter_bound_ms=_bound(byt - count_byt, 0)["bound_ms"])
 
 
 def route_timing(dev, reps=5):
     """myers_streams at the main path's launch shape (640 pairs of
-    11000-12288 columns), route_buckets on the mesh path's stage-01 sketch
-    route (the 4-field call; a mesh-sized synthetic launch where the run
-    made none) and seed_symmetrize on the mesh path's records of one shard,
-    each alone (launches only, after a device sleep) beside its bound and
-    the plain steps it replaces on the card; the host side of a Myers
-    sub-batch's inputs, the old row fill against the flat array; the mesh
-    lookup by engine_anchor (launch alone) against the plain lookup.
-    Returns {name: result}."""
+    11000-12288 columns); the routing kernels at the mesh path's three
+    recorded shapes: bucketize on stage 01's sketch route (4 fields; a
+    mesh-sized synthetic launch where the run made none) and on the
+    lookup's route back (5 fields), seed_route on the sort's records of one
+    shard.  For each routing shape: the count launch alone, the scatter
+    launch alone and both (each after a device sleep), the wrapper's whole
+    call and its device operations, the plain version on the card, one
+    stable torch.sort of the destinations as a yardstick, the grid (tiles;
+    blocks an SM holds) and the bound (bytes: each row's destination and
+    flag read once, the kept rows' fields read once and written once; for
+    the seed route each record read once and each kept view written once).
+    Also the host side of a Myers sub-batch's inputs, the old row fill
+    against the flat array; the seven-key sort; the mesh lookup by
+    engine_anchor (launch alone) against the plain lookup.  Returns {name:
+    result}."""
     import numpy as np
     import torch
     from nextdenovo_tpu_torch import _build
@@ -3935,61 +4125,76 @@ def route_timing(dev, reps=5):
     del si, a, qpad_d, tpad_d, fl
     torch.cuda.empty_cache()
 
-    if "bucketize_4" in MESH_CALLS:
-        fields, dest, valid, n, cap = mesh_call("bucketize_4", dev)
-        where = "the mesh path's stage-01 sketch route of one shard"
-    else:
-        fields, dest, valid, n, cap = next(
-            s[1:] for s in _route_sets(rng, dev) if s[0].startswith("a mesh"))
-        where = "a mesh-sized synthetic launch"
-    N, F = dest.shape[0], len(fields)
-    ms = _events_ms(lambda: MS._route_launch(fields, dest, valid, n, cap),
-                    reps)
-    _, call_ms = timed(lambda: MS.bucketize(fields, dest, valid, n, cap), 3)
-    _, plain_ms = timed(lambda: MS.bucketize_plain(fields, dest, valid, n,
-                                                   cap), 3)
-    got = MS.bucketize(fields, dest, valid, n, cap)
-    err = _same_buckets(where, got, MS.bucketize_plain(fields, dest, valid,
-                                                       n, cap))
-    kept = int(np.minimum(got[1][:n], cap).sum())
-    byt = N * (8 + (0 if valid is None else 1)) + kept * F * 16 + (n + 1) * 8
-    out["route_buckets"] = dict(
-        exact=True, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        wrapper_ms=call_ms,
-        plain_call_launches=plain_launches(
-            lambda: MS.bucketize_plain(fields, dest, valid, n, cap)),
-        shape=f"{N} rows x {F} fields, n={n} ({where})", **_bound(byt, 0))
-    log(f"[timing] route_buckets on {out['route_buckets']['shape']}: alone "
-        f"{ms:.4f} ms (bound {out['route_buckets']['bound_ms']:.4f}, bytes); "
-        f"the wrapper's call (one host sync) {call_ms:.3f} ms; "
-        f"bucketize_plain on the card {plain_ms:.3f} ms in "
-        f"{out['route_buckets']['plain_call_launches']} device kernels")
-
-    rec, is_seed, lens, n = mesh_call("seed_symmetrize", dev)
+    shapes = {}
+    for key, where in (("bucketize_4", "the mesh path's stage-01 sketch "
+                        "route of one shard"),
+                       ("bucketize_5", "the mesh path's route back of one "
+                        "shard's anchors")):
+        if key in MESH_CALLS:
+            shapes[key] = (where, mesh_call(key, dev))
+    if "bucketize_4" not in shapes:
+        shapes["bucketize_4"] = ("a mesh-sized synthetic launch", next(
+            s[1:] for s in _route_sets(rng, dev) if s[0].startswith("a mesh")))
+    route = {}
+    for key, (where, (fields, dest, valid, n, cap)) in shapes.items():
+        N, F = dest.shape[0], len(fields)
+        launches = PreparedRoute(dev, MS.bucket_launches(
+            _build.kernels(), fields, dest, valid, n, cap))
+        kept = int(np.minimum(launches.counts[:n], cap).sum())
+        count_byt = N * (8 + (0 if valid is None else 1)) + (n + 1) * 8
+        route[key] = dict(_route_shape_timing(
+            where, lambda: MS.bucketize(fields, dest, valid, n, cap),
+            lambda: MS.bucketize_plain(fields, dest, valid, n, cap),
+            launches, dest, count_byt + kept * F * 16, count_byt, reps),
+            shape=f"{N} rows x {F} fields, n={n}, {kept} kept ({where})")
+        del launches
+    rec, is_seed, lens, n, cap = mesh_call("seed_route", dev)
     R = rec.shape[0]
-    ms = _events_ms(lambda: DS.seed_symmetrize(rec, is_seed, lens, n), reps)
-    _, plain_ms = timed(lambda: DS.seed_symmetrize_plain(rec, is_seed, lens,
-                                                         n), 3)
-    r = {}
-    _record(r, "the mesh path's records", "seed_symmetrize",
-            DS.seed_symmetrize(rec, is_seed, lens, n),
-            DS.seed_symmetrize_plain(rec, is_seed, lens, n))
-    byt = R * 64 + 2 * R * 9 + 2 * R * (64 + 1 + 8)
-    out["seed_symmetrize"] = dict(
-        r["seed_symmetrize"], ms=ms, plain_ms=plain_ms,
-        plain_call_launches=plain_launches(
-            lambda: DS.seed_symmetrize_plain(rec, is_seed, lens, n)),
-        shape=f"{R} records of one shard, n={n}", **_bound(byt, 0))
-    log(f"[timing] seed_symmetrize on {out['seed_symmetrize']['shape']}: "
-        f"alone {ms:.4f} ms (bound "
-        f"{out['seed_symmetrize']['bound_ms']:.4f}, bytes); plain on the "
-        f"card {plain_ms:.3f} ms in "
-        f"{out['seed_symmetrize']['plain_call_launches']} device kernels")
+    launches = PreparedRoute(dev, DS.seed_route_launches(
+        _build.kernels(), rec, is_seed, lens, n, cap))
+    kept = int(np.minimum(launches.counts[:n], cap).sum())
+    count_byt = R * 64 + (n + 1) * 8
+    views_dest = DS.seed_symmetrize_plain(rec, is_seed, lens, n)[2]
+    route["seed_route"] = dict(_route_shape_timing(
+        "the mesh path's records",
+        lambda: DS.seed_route(rec, is_seed, lens, n, cap),
+        lambda: DS.seed_route_plain(rec, is_seed, lens, n, cap), launches,
+        views_dest, count_byt + kept * 64, count_byt, reps),
+        shape=f"{R} records of one shard, n={n}, {kept} views kept")
+    del launches
+    for key, t in route.items():
+        log(f"[timing] {'bucketize' if key != 'seed_route' else key} on "
+            f"{t['shape']}: launches alone {t['launches_ms']:.4f} ms (count "
+            f"{t['count_ms']:.4f}, scatter {t['scatter_ms']:.4f}; bound "
+            f"{t['bound_ms']:.4f}, bytes, {100 * t['bound_ms'] / t['launches_ms']:.1f} "
+            f"%; count's {t['count_bound_ms']:.4f}, scatter's "
+            f"{t['scatter_bound_ms']:.4f}); the wrapper's call (one host "
+            f"sync) {t['wrapper_ms']:.4f} ms in {t['call_device_ops']} "
+            f"device operations; plain on the card {t['plain_ms']:.3f} ms in "
+            f"{t['plain_call_launches']} device kernels; one stable "
+            f"torch.sort of the destinations {t['sort_ms']:.4f} ms; grid "
+            f"{t['tiles']} tiles, {t['resident_blocks_an_sm']} blocks an SM")
+    out["route_timing"] = route
+    # the kernels line: each launch alone at its path's first shape
+    for names, key in ((BUCKET_KERNELS, "bucketize_4"),
+                       (SEED_ROUTE_KERNELS, "seed_route")):
+        t = route[key]
+        for name, part in zip(names, ("count", "scatter")):
+            out[name] = dict(
+                exact=True, max_abs_err=t["max_abs_err"],
+                ms=t[f"{part}_ms"], plain_ms=t["plain_ms"],
+                bound_ms=t[f"{part}_bound_ms"], bound_by="bytes",
+                wrapper_ms=t["wrapper_ms"], launches_ms=t["launches_ms"],
+                pair_bound_ms=t["bound_ms"], sort_ms=t["sort_ms"],
+                call_device_ops=t["call_device_ops"],
+                plain_call_launches=t["plain_call_launches"],
+                shape=t["shape"])
+
     # the seven-key sort (a library sort, not ported) on as many rows as
     # this shard's valid views, the rows a shard receives on average: its
     # bound is seven stable passes, each key read once, the permutation
     # written once
-    cols, valid, _ = DS.seed_symmetrize(rec, is_seed, lens, n)
+    cols, valid, _ = DS.seed_symmetrize_plain(rec, is_seed, lens, n)
     qn, rv, s_, e_, tn, ts2, _, mt = cols[:, valid].unbind(0)
     keys = [qn, -mt, e_ - s_, tn, ts2, s_, rv]
     V = int(qn.shape[0])
@@ -4398,6 +4603,7 @@ def main() -> int:
                                  "searchsorted_ms_l2_flushed",
                                  "plain_call_ms", "plain_call_launches",
                                  "nonzero_ms", "call_device_ops",
+                                 "launches_ms", "pair_bound_ms", "sort_ms",
                                  "plain_select_ms", "plain_emit_ms",
                                  *(f"{p}_{k_}" for p in ("index", "hifi")
                                    for k_ in SKETCH_SHAPE_KEYS))

@@ -9,10 +9,12 @@
     python3 chip_variants.py --kernel chain_emit A.cu [B.cu ...]
     python3 chip_variants.py --kernel engine_anchor A.cu [B.cu ...]
     python3 chip_variants.py --kernel sketch_minimizers [--phases] [A.cu ...]
+    python3 chip_variants.py --kernel route_buckets [--phases] [A.cu ...]
     python3 chip_variants.py --turns PARENT_DIR
     python3 chip_variants.py --match-turns PARENT_DIR
     python3 chip_variants.py --mesh-memory PARENT_DIR
     python3 chip_variants.py --sketch-turns PARENT_DIR
+    python3 chip_variants.py --route-turns PARENT_DIR
 
 Each A.cu is a whole copy of nextdenovo_tpu_torch/csrc/wave.cu whose
 wave_tb_kernel differs; keep the copies in a git-ignored directory.  The
@@ -104,14 +106,48 @@ summarised at each batch; --phases adds two such copies made from the
 package's sketch.cu (sketch_phase_copies): as it is, and with release
 stores and acquire loads of the look-back's status words.
 
+--kernel route_buckets: each A.cu is a whole copy of csrc/route.cu with the
+package's four routing entries (ndt_route_count, ndt_route_scatter,
+ndt_seed_route_count, ndt_seed_route_scatter).  The script first runs this
+checkout's main and mesh paths (use_mesh = 8, one card) to record the mesh
+path's routing calls.  Every copy is built into a library of its own and
+held, with the package's, against bucketize_plain and seed_route_plain on
+the three recorded shapes (stage 01's sketch route, 4 fields; the lookup's
+route back, 5 fields; the sort's seed route) and on synthetic sets (n = 8
+with a truncating cap, n = 4096, cap = 0, every row outside, records with
+ids out of range), exactly.  Then every copy is timed in turns, in the
+order given and in reverse, at the three shapes: the count launch (its
+memset and kernel), the scatter launch (the pointer table's copy and the
+kernel) and both, CUDA events around 5 calls after a device sleep, and
+each operation's device time by torch.profiler.  A copy that exports
+`int ndt_dbg(void* host, int n, int which)`, copying 8 int64 a block of
+the count (which = 0) or scatter (1) kernel, gets them summarised;
+--phases adds such a copy made from the package's route.cu
+(route_phase_copy): the global timer at a block's start and end, clock64
+at the ends of its phases (count: keys and counts, the ticket, the last
+block's scan; scatter: keys, ranks, scans, slots, fields).
+
 --turns PARENT_DIR: this checkout against an earlier tree unpacked in
 PARENT_DIR (git archive), in turns parent, this, this, parent.  First
 --engine-anchor-turn of each (a process each): engine_anchor at the main
 path's batch through the package's public wrapper, its kernels' device time by
 name from torch.profiler and the whole call by the host clock, warm and with
 the L2 flushed before each call.  Then each tree's own chip_smoke main, mesh
-(use_mesh = 8) and HiFi paths in a workdir of their own; every stage file of
+(use_mesh = 8) and HiFi paths in a workdir of their own, and where the
+machine has two cards or more each tree's mesh_cards; every stage file of
 the first parent and the first of this checkout's runs must be byte-equal.
+Each turn's walls (main, mesh, HiFi) and mesh spans (mesh/sketch_route,
+mesh/lookup_route, mesh/sort_route, mesh/sort: calls, seconds) are printed
+at the end, a line a turn.
+
+--route-turns PARENT_DIR: the routing of the earlier tree in PARENT_DIR
+against this checkout's, at the mesh path's three recorded shapes (this
+checkout's main and mesh paths run first, in a process of their own, and
+save the calls: --route-calls FILE), a process a tree in turns parent,
+this, this, parent (--route-turn DIR FILE): the launches alone (after a
+device sleep) and the wrapper's whole call, for each shape; where the tree
+has no seed_route, its seed_symmetrize then bucketize.  Every turn's
+counts and bucket checksums must agree.
 
 --match-turns PARENT_DIR: stage 01's overlap search of the main path (all
 reads indexed at k = 15, w = 5; the seeds queried in chunks of 2000 as the
@@ -151,6 +187,7 @@ import ctypes
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1053,6 +1090,391 @@ def main_sketch_minimizers(srcs) -> int:
     return 0
 
 
+ROUTE_PHASE_MARKS = (
+    # (text in csrc/route.cu, what goes before it, what replaces it or
+    # None): thread 0 of a block stamps the global timer and clock64
+    ("    int* cnt = sm + THREADS;\n", None,
+     "    int* cnt = sm + THREADS;\n    long long* dbg = g_dbg + (int64_t)min("
+     "blockIdx.x, 16383u) * 8;\n    if (tid == 0) { dbg[0] = gtime(); "
+     "dbg[1] = clock64(); }\n"),
+    ("    int* const rows[1] = {blk + (int64_t)blockIdx.x * n1};\n",
+     "    if (tid == 0) dbg[2] = clock64();\n", None),
+    ("    if (publish_last(cnt, rows, 1, n1, ticket, gridDim.x)) {\n"
+     "        scan_tiles(blk, gridDim.x, n1, counts, sm, sm + THREADS);\n"
+     "        if (tid == 0) *ticket = 0;\n    }\n", None,
+     "    const bool lb = publish_last(cnt, rows, 1, n1, ticket, gridDim.x);\n"
+     "    if (tid == 0) dbg[3] = clock64();\n"
+     "    if (lb) {\n"
+     "        scan_tiles(blk, gridDim.x, n1, counts, sm, sm + THREADS);\n"
+     "        if (tid == 0) *ticket = 0;\n    }\n"
+     "    if (tid == 0) { dbg[4] = clock64(); dbg[5] = gtime(); "
+     "dbg[6] = lb; }\n"),
+    ("    int64_t lo, rlo = 0;\n    int rows, side = 0;\n",
+     "    long long* dbg = g_dbg2 + (int64_t)min(blockIdx.x, 16383u) * 8;\n"
+     "    if (tid == 0) { dbg[0] = gtime(); dbg[1] = clock64(); }\n", None),
+    ("    // (1) a row's rank", "    if (tid == 0) dbg[2] = clock64();\n",
+     None),
+    ("    // (2) per destination", "    if (tid == 0) dbg[3] = clock64();\n",
+     None),
+    ("    // (3) each row's slot", "    if (tid == 0) dbg[4] = clock64();\n",
+     None),
+    ("    // (4) the kept rows staged", "    if (tid == 0) dbg[5] = clock64();\n",
+     None),
+    ("        return;\n    }\n    constexpr int PAIRS", None,
+     "        if (tid == 0) { dbg[6] = clock64(); dbg[7] = gtime(); }\n"
+     "        return;\n    }\n    constexpr int PAIRS"),
+    # the last block's scan, its chunk's steps (g_dbg3)
+    ("    const int G = THREADS / n1, TB = SCAN_INTS / n1;\n",
+     "    if (tid == 0) g_dbg3[0] = clock64();\n", None),
+    ("        __syncthreads();\n        const int seg = (nb + G - 1) / G;\n",
+     None, "        __syncthreads();\n        if (tid == 0) g_dbg3[1] = "
+     "clock64();\n        const int seg = (nb + G - 1) / G;\n"),
+    ("        if (tid < n1) {\n            int run = carry;\n",
+     "        if (tid == 0) g_dbg3[2] = clock64();\n", None),
+    ("        if (g < G) {\n            int run = part[tid];\n",
+     "        if (tid == 0) g_dbg3[3] = clock64();\n", None),
+    ("        for (int i = tid; i < m; i += THREADS) src[i] = tab[i];\n",
+     "        if (tid == 0) g_dbg3[4] = clock64();\n", None),
+    ("    if (tid < n1) counts[tid] = carry;\n",
+     "    if (tid == 0) g_dbg3[5] = clock64();\n", None),
+    ("        __syncthreads();\n    }\n}\n\ncudaError_t smem_attr", None,
+     "        __syncthreads();\n    }\n    if (tid == 0) { dbg[6] = clock64(); "
+     "dbg[7] = gtime(); }\n}\n\ncudaError_t smem_attr"))
+ROUTE_PHASES = {0: ("keys and counts", "ticket", "scan"),
+                1: ("prefetch and keys", "ranks", "scans", "slots",
+                    "fields")}
+
+def route_entries():
+    """The four routing entries' ctypes signatures (as _build sets them)."""
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    pv = ctypes.POINTER(vp)
+    return {"ndt_route_count": [vp, vp, ci, ci, vp, vp, vp, vp, vp],
+            "ndt_route_scatter": [pv, ci, vp, vp, vp, ci, ci, ci, pv, vp, vp],
+            "ndt_seed_route_count": [vp, vp, vp, ci, ll, ci, vp, vp, vp, vp,
+                                     vp],
+            "ndt_seed_route_scatter": [vp, ci, vp, vp, vp, ci, ci, pv, vp,
+                                       vp],
+            "ndt_route_resident": [ci]}
+
+
+def route_phase_copy(tmp):
+    """An instrumented copy of the package's csrc/route.cu in tmp,
+    exporting ndt_dbg: thread 0 of each count block (g_dbg) and scatter
+    block (g_dbg2) stamps the global timer at its start and end and
+    clock64 at the ends of its phases (ROUTE_PHASES).  Returns its path."""
+    from nextdenovo_tpu_torch import _build
+    src = open(os.path.join(_build.CSRC_DIR, "route.cu")).read()
+    head = ("__device__ long long g_dbg[16384 * 8];\n"
+            "__device__ long long g_dbg2[16384 * 8];\n"
+            "__device__ long long g_dbg3[8];\n\nnamespace {\n\n"
+            "__device__ __forceinline__ long long gtime() {\n"
+            "    long long t;\n"
+            "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+            "    return t;\n}\n")
+    s = src.replace("namespace {\n", head, 1)
+    for mark, before, instead in ROUTE_PHASE_MARKS:
+        if s.count(mark) != 1:
+            raise RuntimeError(f"route.cu: no single {mark!r}")
+        s = s.replace(mark, instead if instead is not None
+                      else before + mark)
+    s = s.replace('extern "C" {\n', 'extern "C" {\n\n'
+                  '// copies n blocks\' stamps of the count (which = 0) or\n'
+                  '// scatter (1) kernel out, then zeroes them\n'
+                  'int ndt_dbg(void* host, int n, int which) {\n'
+                  '    void* p = nullptr;\n'
+                  '    int e = which ? (int)cudaGetSymbolAddress(&p, g_dbg2)\n'
+                  '                  : (int)cudaGetSymbolAddress(&p, g_dbg);\n'
+                  '    if (e == 0) e = (int)cudaMemcpy(host, p, (size_t)n * 64,'
+                  ' cudaMemcpyDeviceToHost);\n'
+                  '    if (e == 0) e = (int)cudaMemset(p, 0, 16384 * 64);\n'
+                  '    return e;\n}\n\n'
+                  '// the last count block\'s scan: 8 stamps\n'
+                  'int ndt_dbg3(void* host) {\n'
+                  '    return (int)cudaMemcpyFromSymbol(host, g_dbg3, 64);\n'
+                  '}\n', 1)
+    out = os.path.join(tmp, "route_phases.cu")
+    with open(out, "w") as fh:
+        fh.write(s)
+    return out
+
+
+def mesh_route_calls(d):
+    """The mesh path's routing calls of this checkout's main and mesh paths
+    (use_mesh = 8 on the one card): {bucketize_4, bucketize_5, seed_route:
+    their arguments on d}."""
+    import chip_smoke as c
+    w = tempfile.mkdtemp(prefix="chip_variants_route_")
+    _, f = c.phase_main_path(d, c.GENOME_SIZE, w)
+    c.phase_mesh_path(d, w, f["sim"], f["genome"], capture=True)
+    calls = {k: c.mesh_call(k, d) for k in ("bucketize_4", "bucketize_5",
+                                            "seed_route")}
+    c.MESH_CALLS.clear()
+    return calls
+
+
+def main_route_buckets(srcs) -> int:
+    """--kernel route_buckets [--phases] A.cu ...: see the module's
+    docstring."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import chip_smoke as c
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.parallel import dist_sort as DS
+    from nextdenovo_tpu_torch.parallel import mesh as MS
+    c.phase_env()
+    c.phase_build()
+    d = torch.device("cuda")
+    calls = mesh_route_calls(d)
+    tmp = tempfile.mkdtemp(prefix="chip_variants_")
+    if "--phases" in srcs:
+        srcs = [x for x in srcs if x != "--phases"] + [route_phase_copy(tmp)]
+    entries = route_entries()
+    libs = {"package": _build.kernels()}
+    libs.update(build_copies(_build.find_nvcc(), _build.NVCC_FLAGS, tmp,
+                             srcs, "ndt_route_count",
+                             entries["ndt_route_count"]))
+    for name, lib in libs.items():
+        for sym, args in entries.items():
+            getattr(lib, sym).restype = ctypes.c_int
+            getattr(lib, sym).argtypes = args
+        if hasattr(lib, "ndt_dbg"):
+            lib.ndt_dbg.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int]
+            lib.ndt_dbg3.argtypes = [ctypes.c_void_p]
+    for name, src in [("package", os.path.join(_build.CSRC_DIR, "route.cu"))] \
+            + [(os.path.basename(x)[:-3], x) for x in srcs]:
+        log(f"[variants] {name}: registers, spill and stack bytes, SASS "
+            f"instructions: {json.dumps(c.sketch_sass(src))}")
+    rng = np.random.default_rng(29)
+    # (tag, the launches from a library, plain) of the exactness sets
+    sets = []
+    for key in ("bucketize_4", "bucketize_5"):
+        a = calls[key]
+        sets.append((key, functools.partial(MS.bucket_launches, fields=a[0],
+                                            dest=a[1], valid=a[2],
+                                            n_shards=a[3], cap=a[4]),
+                     functools.partial(MS.bucketize_plain, *a)))
+    rec, is_seed, lens, n, cap = calls["seed_route"]
+    bad = c._bad_records(rec, lens)
+    for tag, r8, n_, cap_ in (("seed_route", rec, n, cap),
+                              ("records with ids out of range, n = 8", bad,
+                               8, 40),
+                              ("records with ids out of range, n = 4096", bad,
+                               4096, 10**6)):
+        a = (r8, is_seed, lens, n_, cap_)
+        sets.append((tag, functools.partial(DS.seed_route_launches, rec=r8,
+                                            is_seed=is_seed, lens=lens,
+                                            n_shards=n_, cap=cap_),
+                     functools.partial(DS.seed_route_plain, *a)))
+    for tag, *a in c._route_sets(rng, d):
+        if tag.startswith(("n = 8", "n = 4096", "cap = 0", "every row")):
+            sets.append((tag, functools.partial(
+                MS.bucket_launches, fields=a[0], dest=a[1], valid=a[2],
+                n_shards=a[3], cap=a[4]),
+                functools.partial(MS.bucketize_plain, *a)))
+    for tag, launches_of, plain in sets:
+        want = plain()
+        for name, lib in libs.items():
+            L = c.PreparedRoute(d, launches_of(lib))
+            L.scatter()
+            c._same_buckets(f"{tag} ({name})", L.buckets(), want)
+    log(f"[variants] every copy equal to the plain versions on "
+        f"{', '.join(t for t, _, _ in sets)}")
+    shapes = {t: launches_of for t, launches_of, _ in sets[:3]}
+    launches = {(name, tag): c.PreparedRoute(d, launches_of(lib))
+                for name, lib in libs.items()
+                for tag, launches_of in shapes.items()}
+    times = {}
+    for order in (list(libs), list(libs)[::-1]):
+        for name in order:
+            for tag in shapes:
+                L = launches[(name, tag)]
+                times.setdefault((name, tag), []).append(
+                    [c._events_ms(f) for f in (L.count, L.scatter, L.both)])
+    for name in libs:
+        for tag in shapes:
+            L = launches[(name, tag)]
+            L.both()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    L.both()
+                torch.cuda.synchronize()
+            dev_ms = {e.key[:32]: round(e.device_time_total / 1e3 / 5, 5)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA}
+            log(f"[variants] {name} {tag} (grid {L.tiles} tiles): count / "
+                f"scatter / both ms " + " | ".join(
+                    " / ".join(f"{x:.4f}" for x in t)
+                    for t in times[(name, tag)])
+                + f"; device {json.dumps(dev_ms)}")
+    for name, lib in libs.items():
+        if not hasattr(lib, "ndt_dbg"):
+            continue
+        for tag in shapes:
+            L = launches[(name, tag)]
+            for which, go in ((0, L.count), (1, L.scatter)):
+                if which == 0 and L.rl.name == "seed_route":
+                    continue           # seed_route_count has no stamps
+                G = L.tiles
+                buf = (ctypes.c_longlong * (16384 * 8))()
+                dbg = lambda: lib.ndt_dbg(ctypes.cast(buf, ctypes.c_void_p),
+                                          G, which)
+                torch.cuda.synchronize()
+                rc = dbg()                    # clears the earlier stamps
+                go()
+                torch.cuda.synchronize()
+                if rc != 0 or dbg() != 0:
+                    raise RuntimeError("ndt_dbg failed")
+                a = np.frombuffer(buf, dtype=np.int64)[: G * 8].reshape(G, 8)
+                t0 = a[:, 0].min()
+                if which == 0:
+                    ph = np.diff(a[:, 1:4], axis=1)
+                    last = a[a[:, 6] == 1]
+                    scan = int(last[0, 4] - last[0, 3]) if len(last) else -1
+                    ends = a[:, 5]
+                    b3 = (ctypes.c_longlong * 8)()
+                    if lib.ndt_dbg3(ctypes.cast(b3, ctypes.c_void_p)) == 0:
+                        st = np.frombuffer(b3, dtype=np.int64)[:6]
+                        log(f"[variants] {name} {tag} the last block's scan"
+                            f" (cycles; its last chunk): start to loads "
+                            f"{int(st[1] - st[0])}, group sums "
+                            f"{int(st[2] - st[1])}, column scan "
+                            f"{int(st[3] - st[2])}, prefixes "
+                            f"{int(st[4] - st[3])}, write-back "
+                            f"{int(st[5] - st[4])}")
+                else:
+                    ph = np.diff(a[:, 1:7], axis=1)
+                    ends = a[:, 7]
+                names = ROUTE_PHASES[which]
+                log(f"[variants] {name} {tag} {'count' if which == 0 else 'scatter'}"
+                    f", {G} blocks, cycles a phase (median / max over blocks): "
+                    + ", ".join(f"{names[j]} {int(np.median(ph[:, j]))}/"
+                                f"{int(ph[:, j].max())}"
+                                for j in range(ph.shape[1]))
+                    + (f", scan (the last block) {scan}" if which == 0
+                       else "")
+                    + f"; block starts {(a[:, 0] - t0).max() / 1e3:.2f} us "
+                    f"after the first, ends {(ends - t0).min() / 1e3:.2f}-"
+                    f"{(ends - t0).max() / 1e3:.2f} us")
+    return 0
+
+
+def route_calls(out) -> int:
+    """--route-calls FILE: this checkout's main and mesh paths, and the mesh
+    path's routing calls saved to FILE (torch.save, on the host)."""
+    import torch
+    import chip_smoke as c
+    c.phase_env()
+    c.phase_build()
+    d = torch.device("cuda")
+    calls = mesh_route_calls(d)
+    torch.save({k: c._moved(v, "cpu") for k, v in calls.items()}, out)
+    return 0
+
+
+def route_turn(tree, calls_file) -> int:
+    """--route-turn DIR FILE: the routing of the package in the checkout
+    DIR at the three shapes saved in FILE: for each, the launches alone
+    (after a device sleep; a tree without seed_route: its seed_symmetrize
+    and its route_buckets launch on the views) and the wrapper's whole
+    call (seed_symmetrize then bucketize there), the counts and a checksum
+    of the buckets.  Prints one JSON line."""
+    import chip_smoke as c
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from nextdenovo_tpu_torch import _build
+    from nextdenovo_tpu_torch.parallel import dist_sort as DS
+    from nextdenovo_tpu_torch.parallel import mesh as MS
+    if not MS.__file__.startswith(os.path.abspath(tree)):
+        raise RuntimeError(f"imported {MS.__file__}, not the package in {tree}")
+    c.phase_env()
+    _build.build(native=False)
+    d = torch.device("cuda")
+    calls = {k: c._moved(v, d) for k, v in torch.load(calls_file).items()}
+    fused = hasattr(DS, "seed_route")
+
+    def checksum(res):
+        buckets, counts = res
+        return [[int(f.sum()) for f in b] for b in buckets], \
+            [int(x) for x in counts]
+
+    res = {"tree": tree}
+    for key in ("bucketize_4", "bucketize_5"):
+        fields, dest, valid, n, cap = calls[key]
+        call = lambda: MS.bucketize(fields, dest, valid, n, cap)
+        if fused:
+            launch = c.PreparedRoute(d, MS.bucket_launches(
+                _build.kernels(), fields, dest, valid, n, cap)).both
+        else:
+            launch = lambda: MS._route_launch(fields, dest, valid, n, cap)
+        res[key] = dict(launch_ms=c._events_ms(launch),
+                        wrapper_ms=c.timed(call, 5)[1],
+                        sum=checksum(call()))
+    rec, is_seed, lens, n, cap = calls["seed_route"]
+    if fused:
+        call = lambda: DS.seed_route(rec, is_seed, lens, n, cap)
+        launch_ms = {"seed_route_count + seed_route_scatter": c._events_ms(
+            c.PreparedRoute(d, DS.seed_route_launches(
+                _build.kernels(), rec, is_seed, lens, n, cap)).both)}
+    else:
+        def call():
+            cols, valid, dest = DS.seed_symmetrize(rec, is_seed, lens, n)
+            return MS.bucketize(cols.unbind(0), dest, valid, n, cap)
+        cols, valid, dest = DS.seed_symmetrize(rec, is_seed, lens, n)
+        sym = lambda: DS.seed_symmetrize(rec, is_seed, lens, n)
+        rb = lambda: MS._route_launch(cols.unbind(0), dest, valid, n, cap)
+        launch_ms = {"seed_symmetrize": c._events_ms(sym),
+                     "route_buckets": c._events_ms(rb),
+                     "both": c._events_ms(lambda: (sym(), rb()))}
+    res["seed_route"] = dict(launch_ms=launch_ms,
+                             wrapper_ms=c.timed(call, 5)[1],
+                             sum=checksum(call()))
+    log(json.dumps({"route_turn": res}))
+    return 0
+
+
+def main_route_turns(parent) -> int:
+    """--route-turns PARENT: see the module's docstring."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent = os.path.abspath(parent)
+    calls = os.path.join(tempfile.mkdtemp(prefix="chip_variants_"),
+                         "route_calls.pt")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--route-calls", calls], cwd=here,
+                       capture_output=True, text=True)
+    sys.stderr.write(r.stderr[-4000:])
+    if r.returncode:
+        sys.stdout.write(r.stdout[-8000:])
+        return r.returncode
+    turns = []
+    for tree in (parent, here, here, parent):
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--route-turn", tree, calls], cwd=here,
+                           capture_output=True, text=True)
+        sys.stderr.write(r.stderr[-4000:])
+        if r.returncode:
+            sys.stdout.write(r.stdout[-8000:])
+            return r.returncode
+        line = [x for x in r.stdout.splitlines() if '"route_turn"' in x][-1]
+        turns.append(json.loads(line)["route_turn"])
+    for key in ("bucketize_4", "bucketize_5", "seed_route"):
+        sums = {json.dumps(t[key]["sum"]) for t in turns}
+        if len(sums) != 1:
+            raise RuntimeError(f"{key}: the trees' buckets differ")
+        log(f"[route-turns] {key}: " + " | ".join(
+            ("parent" if t["tree"] == parent else "this") + " launches "
+            + (json.dumps({k: round(v, 5) for k, v in
+                           t[key]["launch_ms"].items()})
+               if isinstance(t[key]["launch_ms"], dict)
+               else f"{t[key]['launch_ms']:.4f}")
+            + f", wrapper {t[key]['wrapper_ms']:.4f} ms" for t in turns)
+            + "; buckets and counts equal in every turn")
+    return 0
+
+
 def sketch_turn(tree) -> int:
     """--sketch-turn DIR: the sketch kernels of the package in the checkout
     DIR at three shapes: the main path's 16-row query batch and a 32-row
@@ -1137,6 +1559,11 @@ def main_sketch_turns(parent) -> int:
     return 0
 
 
+# the mesh path's spans that --turns reports for each turn
+MESH_TURN_SPANS = ("mesh/sketch_route", "mesh/lookup_route",
+                   "mesh/sort_route", "mesh/sort")
+
+
 def main_turns(parent) -> int:
     """--turns PARENT: this checkout against the one in PARENT (an earlier
     tree, unpacked with git archive), in turns parent, this, this, parent:
@@ -1156,21 +1583,42 @@ def main_turns(parent) -> int:
         if r.returncode:
             return r.returncode
     runs = tempfile.mkdtemp(prefix="chip_variants_turns_")
-    code = ("import chip_smoke as c, torch, sys; d = torch.device('cuda'); "
+    code = ("import chip_smoke as c, torch, sys, json; "
+            "from nextdenovo_tpu_torch.utils import get_tracer; "
+            "d = torch.device('cuda'); "
             "c.phase_env(); c.phase_build(); w = sys.argv[1]; "
             "l, f = c.phase_main_path(d, c.GENOME_SIZE, w + '/main'); "
-            "c.phase_mesh_path(d, w + '/main', f['sim'], f['genome']); "
+            "ml, mp = c.phase_mesh_path(d, w + '/main', f['sim'], "
+            "f['genome']); "
+            "sp = {n: [sum(1 for x in get_tracer().spans if x.name == n), "
+            "sum(x.wall for x in get_tracer().spans if x.name == n)] "
+            f"for n in {MESH_TURN_SPANS!r}}}; "
+            "print(json.dumps({'turn_spans': sp}), flush=True); "
+            "torch.cuda.device_count() > 1 and c.phase_mesh_cards("
+            "d, w + '/main', f['sim'], f['genome'], mp); "
             "c.phase_hifi_path(d, c.HIFI_GENOME_SIZE, w + '/hifi')")
-    wds = []
+    wds, summary = [], []
     for i, tree in enumerate(order):
         wd = os.path.join(runs, f"turn{i}")
         for sub in ("main", "hifi"):
             os.makedirs(os.path.join(wd, sub))
         log(f"[turns] turn {i}: {'parent' if tree == parent else 'this'}")
-        r = subprocess.run([sys.executable, "-c", code, wd], cwd=tree)
+        r = subprocess.run([sys.executable, "-c", code, wd], cwd=tree,
+                           capture_output=True, text=True)
+        sys.stdout.write(r.stdout)
+        sys.stderr.write(r.stderr[-4000:])
         if r.returncode:
             return r.returncode
         wds.append(wd)
+        walls = dict(re.findall(r"\[(main_path|mesh_path|hifi_path)\] "
+                                r"task=all.*? wall ([0-9.]+)s", r.stdout))
+        spans = [json.loads(x)["turn_spans"] for x in r.stdout.splitlines()
+                 if x.startswith('{"turn_spans"')][-1]
+        summary.append(f"[turns] turn {i} "
+                       f"({'parent' if tree == parent else 'this'}): walls "
+                       + ", ".join(f"{k} {v} s" for k, v in walls.items())
+                       + "; " + ", ".join(f"{n} {k} calls {w:.4f} s"
+                                          for n, (k, w) in spans.items()))
     n_files = 0
     for dp, _, fs in os.walk(wds[0]):
         for f in fs:
@@ -1187,6 +1635,8 @@ def main_turns(parent) -> int:
             n_files += 1
     log(f"[turns] {n_files} stage files of the main, mesh and HiFi paths "
         "byte-equal, parent against this checkout")
+    for line in summary:
+        log(line)
     return 0
 
 
@@ -1208,6 +1658,14 @@ def main(argv) -> int:
         return main_engine_anchor(argv[2:])
     if argv[:2] == ["--kernel", "sketch_minimizers"]:
         return main_sketch_minimizers(argv[2:])
+    if argv[:2] == ["--kernel", "route_buckets"]:
+        return main_route_buckets(argv[2:])
+    if argv[:1] == ["--route-calls"]:
+        return route_calls(argv[1])
+    if argv[:1] == ["--route-turn"]:
+        return route_turn(argv[1], argv[2])
+    if argv[:1] == ["--route-turns"]:
+        return main_route_turns(argv[1])
     if argv[:1] == ["--engine-anchor-turn"]:
         return engine_anchor_turn(argv[1])
     if argv[:1] == ["--turns"]:

@@ -41,7 +41,8 @@ LAUNCHES = {"myers_fwd": 0, "myers_tb": 0, "wave_fwd": 0, "wave_tb": 0,
             "ext_fwd": 0, "wave_fast_fwd": 0, "wave_fast_tb": 0,
             "engine_anchor": 0, "vote_corridor": 0, "chain_emit": 0,
             "sketch_minimizers": 0, "hpc_compress": 0,
-            "myers_streams": 0, "route_buckets": 0, "seed_symmetrize": 0}
+            "myers_streams": 0, "route_count": 0, "route_scatter": 0,
+            "seed_route_count": 0, "seed_route_scatter": 0}
 CARD_LAUNCHES = {}
 
 _lock = threading.Lock()
@@ -219,14 +220,19 @@ def _load_kernels() -> ctypes.CDLL:
     lib.ndt_hpc_compress.argtypes = [vp, ll] + [vp] * 4 + [ci, ci, vp]
     lib.ndt_myers_streams.restype = ci
     lib.ndt_myers_streams.argtypes = [vp] * 10 + [ci, ci, ci, vp]
-    lib.ndt_route_blocks.restype = ci
-    lib.ndt_route_blocks.argtypes = [ci]
-    lib.ndt_route_buckets.restype = ci
-    lib.ndt_route_buckets.argtypes = [ctypes.POINTER(vp), ci, vp, vp, ci, ci,
-                                      ci, vp, ll, vp, vp, ci, vp]
-    lib.ndt_seed_symmetrize.restype = ci
-    lib.ndt_seed_symmetrize.argtypes = [vp, vp, vp, ll, ll, ci, vp, vp, vp,
-                                        vp]
+    lib.ndt_route_resident.restype = ci
+    lib.ndt_route_resident.argtypes = [ci]
+    lib.ndt_route_count.restype = ci
+    lib.ndt_route_count.argtypes = [vp, vp, ci, ci, vp, vp, vp, vp, vp]
+    lib.ndt_route_scatter.restype = ci
+    lib.ndt_route_scatter.argtypes = [ctypes.POINTER(vp), ci, vp, vp, vp, ci,
+                                      ci, ci, ctypes.POINTER(vp), vp, vp]
+    lib.ndt_seed_route_count.restype = ci
+    lib.ndt_seed_route_count.argtypes = [vp, vp, vp, ci, ll, ci, vp, vp, vp,
+                                         vp, vp]
+    lib.ndt_seed_route_scatter.restype = ci
+    lib.ndt_seed_route_scatter.argtypes = [vp, ci, vp, vp, vp, ci, ci,
+                                           ctypes.POINTER(vp), vp, vp]
     lib.ndt_error_string.restype = ctypes.c_char_p
     lib.ndt_error_string.argtypes = [ci]
     return lib

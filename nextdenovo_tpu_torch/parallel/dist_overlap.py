@@ -24,8 +24,9 @@ counts the rest as drops, so the records, their order per shard and the
 overflow count equal the JAX package's, whichever card finishes first: the
 counts are summed in shard order after each join.
 
-On the card the routing is the route_buckets kernel (mesh.bucketize: one
-launch and one host sync a bucketing) and the lookup the single-device
+On the card the routing is mesh.bucketize (route_count and route_scatter
+around one host sync a bucketing, each bucket written once at its kept
+size) and the lookup the single-device
 engine's engine_anchor kernel, one launch every LOOKUP_ROWS received
 minimizers, each minimizer a query row of its own, against the shard's
 block of the index with its bucket directory (index_shards, made once a

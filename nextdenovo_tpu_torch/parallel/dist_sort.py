@@ -15,10 +15,13 @@ the CPU, and the port's sorts are stable passes (tests/test_torch_mesh.py
 holds such a tie).  Each card of the mesh runs its shards on a host thread
 of its own (parallel/mesh.Mesh.for_each_card).
 
-On the card the route is two hand-written kernels (csrc/route.cu):
-seed_symmetrize makes both views of every record in one pass, and
-route_buckets (mesh.bucketize) routes them in one launch and one host sync.
-The seven-key sort stays _stable_lexsort, seven stable torch.sort passes.
+On the card the route is one call, seed_route: the routing kernels of
+csrc/route.cu with the raw records as their rows.  seed_route_count makes
+both views' keys from one read of each record and counts them; the host
+reads the totals (one sync); seed_route_scatter builds each kept view from
+its record straight into its bucket, so the symmetrized views are never
+written out.  The seven-key sort stays _stable_lexsort, seven stable
+torch.sort passes.
 """
 from __future__ import annotations
 
@@ -30,11 +33,21 @@ from ..device import check_tensor
 from ..overlap.engine import _stable_lexsort
 from ..overlap.records import OvlBlock
 from ..overlap.sort import SortResult, _filter_sorted_native, _rows_to_block
-from .mesh import Mesh, all_to_all, bucketize, psum, replicate, shard_rows
+from .mesh import (ROUTE_SEED_TILE, Mesh, RouteLaunches, all_to_all,
+                   bucketize_plain, check_route, psum, replicate, route_call,
+                   shard_rows)
 
 
 def seed_symmetrize_plain(rec, is_seed, lens, n_shards: int):
-    """Plain version of seed_symmetrize (any device)."""
+    """The seed-keyed views of a shard's raw records (rec (R, 8) int64:
+    qname, rev, qs, qe, tname, ts, te, match, exclusive ends), as
+    distributed_seed_sort_step routes them: the records whose two reads
+    differ and whose spans are both at least 500, each seen from its query
+    (rows 0..R-1) and from its target (rows R..2R-1), ends inclusive, kept
+    where the seed side is a seed (is_seed (n_reads,) bool) and the span
+    ends inside it (lens (n_reads,) int64; ids clamped into range).
+    Returns (cols (8, 2R) int64, valid (2R,) bool, dest (2R,) int64 = the
+    seed % n_shards, floor-mod).  Any device."""
     n_reads = lens.shape[0]
     q, rev, qs, qe = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
     t, ts, te, match = rec[:, 4], rec[:, 5], rec[:, 6], rec[:, 7]
@@ -51,42 +64,56 @@ def seed_symmetrize_plain(rec, is_seed, lens, n_shards: int):
     return cols, torch.cat([v_q, v_t]), cols[0] % n_shards
 
 
-def seed_symmetrize(rec, is_seed, lens, n_shards: int):
-    """The seed-keyed views of a shard's raw records (rec (R, 8) int64:
-    qname, rev, qs, qe, tname, ts, te, match, exclusive ends), as
-    distributed_seed_sort_step routes them: the records whose two reads
-    differ and whose spans are both at least 500, each seen from its query
-    (rows 0..R-1) and from its target (rows R..2R-1), ends inclusive, kept
-    where the seed side is a seed (is_seed (n_reads,) bool) and the span
-    ends inside it (lens (n_reads,) int64; ids clamped into range).
-    Returns (cols (8, 2R) int64, valid (2R,) bool, dest (2R,) int64 = the
-    seed % n_shards, floor-mod).
+def seed_route_plain(rec, is_seed, lens, n_shards: int, cap: int):
+    """Plain version of seed_route (any device): the views, then
+    bucketize_plain."""
+    cols, valid, dest = seed_symmetrize_plain(rec, is_seed, lens, n_shards)
+    return bucketize_plain(cols.unbind(0), dest, valid, n_shards, cap)
 
-    CPU tensors run the plain version; CUDA tensors launch the
-    seed_symmetrize kernel (csrc/route.cu) once."""
+
+def seed_route(rec, is_seed, lens, n_shards: int, cap: int):
+    """A shard's raw records routed by seed: the valid views of
+    seed_symmetrize_plain bucketed as mesh.bucketize buckets them (bucket d
+    the first `cap` valid views of seed % n_shards == d in view order, eight
+    fields; counts (n_shards + 1,) int64 on the host).
+
+    CPU tensors run the plain version; CUDA tensors launch
+    seed_route_count, read its totals (one host sync), allocate each
+    bucket at its kept size and launch seed_route_scatter (csrc/route.cu)."""
     if rec.device.type == "cpu":
-        return seed_symmetrize_plain(rec, is_seed, lens, n_shards)
+        return seed_route_plain(rec, is_seed, lens, n_shards, cap)
     dev = rec.device
     R, n_reads = rec.shape[0], lens.shape[0]
     check_tensor("rec", rec, (R, 8), torch.int64, dev)
+    if rec.data_ptr() % 16:
+        raise ValueError("seed_route: rec must start on a 16-byte boundary "
+                         "(the kernel reads a record 16 bytes at a time)")
     check_tensor("is_seed", is_seed, (n_reads,), torch.bool, dev)
     check_tensor("lens", lens, (n_reads,), torch.int64, dev)
-    if n_shards < 1 or n_reads < 1:
-        raise ValueError(f"seed_symmetrize: {n_shards} shards, {n_reads} "
-                         f"reads")
-    cols = torch.empty((8, 2 * R), dtype=torch.int64, device=dev)
-    valid = torch.empty(2 * R, dtype=torch.bool, device=dev)
-    dest = torch.empty(2 * R, dtype=torch.int64, device=dev)
-    if R:
-        lib = _build.kernels()
-        with torch.cuda.device(dev):
-            rc = lib.ndt_seed_symmetrize(
-                rec.data_ptr(), is_seed.data_ptr(), lens.data_ptr(), R,
-                n_reads, n_shards, cols.data_ptr(), valid.data_ptr(),
-                dest.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _build.check_launch("seed_symmetrize", rc)
-        _build.count_launch("seed_symmetrize", dev)
-    return cols, valid, dest
+    if n_reads < 1:
+        raise ValueError("seed_route: no reads")
+    check_route(2 * R, n_shards)
+    if R == 0:
+        empty = tuple(torch.empty(0, dtype=torch.int64, device=dev)
+                      for _ in range(8))
+        return [empty] * n_shards, np.zeros(n_shards + 1, np.int64)
+    return route_call(dev, seed_route_launches(_build.kernels(), rec,
+                                               is_seed, lens, n_shards, cap))
+
+
+def seed_route_launches(lib, rec, is_seed, lens, n_shards: int,
+                        cap: int) -> RouteLaunches:
+    """seed_route's launches of seed_route_count and seed_route_scatter from
+    `lib` (R > 0 records)."""
+    R, n_reads = rec.shape[0], lens.shape[0]
+    return RouteLaunches(
+        "seed_route", 2 * R, 2 * -(-R // ROUTE_SEED_TILE), n_shards, cap, 8,
+        lambda sc, ticket, stream: lib.ndt_seed_route_count(
+            rec.data_ptr(), is_seed.data_ptr(), lens.data_ptr(), R, n_reads,
+            n_shards, sc.keys, sc.blk, ticket, sc.counts.data_ptr(), stream),
+        lambda sc, dst, stream: lib.ndt_seed_route_scatter(
+            rec.data_ptr(), R, sc.keys, sc.blk, sc.counts.data_ptr(),
+            n_shards, min(cap, 2 * R), dst, sc.table, stream))
 
 
 def distributed_seed_sort_step(rec8, is_seed, lens, *, cap_route: int,
@@ -106,11 +133,9 @@ def distributed_seed_sort_step(rec8, is_seed, lens, *, cap_route: int,
     def route(dev, shards):
         out = []
         for s in shards:
-            cols, valid, dest = seed_symmetrize(rec8[s], is_seed[dev],
-                                                lens[dev], n_shards)
-            buckets, counts = bucketize(cols.unbind(0), dest, valid,
-                                        n_shards, cap_route)
-            # every valid row's seed % n_shards lies in the mesh
+            buckets, counts = seed_route(rec8[s], is_seed[dev], lens[dev],
+                                         n_shards, cap_route)
+            # every valid view's seed % n_shards lies in the mesh
             out.append((buckets, int(counts.sum())))
         return out
 

@@ -21,9 +21,11 @@ the shards then form groups, each on its own thread, on one device.
 Buckets hold compacted rows: `bucketize` hands destination d, for each
 source in order, the first `cap` selected rows (the rows the reference's
 `jnp.nonzero(size=cap)` keeps) and counts the rest as drops, so no array of
-the reference's padded caps is built.  On the card it is one launch of the
-route_buckets kernel and one host sync.  Results equal the JAX package's,
-shard for shard, on any number of cards.
+the reference's padded caps is built.  On the card it is two kernels around
+one host sync: route_count, whose totals the host reads, then
+route_scatter, which writes each row straight into its bucket, allocated at
+its kept size.  Results equal the JAX package's, shard for shard, on any
+number of cards.
 """
 from __future__ import annotations
 
@@ -31,8 +33,9 @@ import concurrent.futures as cf
 import contextlib
 import ctypes
 import logging
+import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,10 +45,13 @@ from ..device import check_tensor, resolve_device
 from ..utils import span
 
 AXIS = "shard"
-# what one launch of the route_buckets kernel (csrc/route.cu) takes
-ROUTE_THREADS = 256
+# what the routing kernels (csrc/route.cu) take: rows a tile (records a
+# tile of the seed route), fields, destinations (their shared memory grows
+# with it), rows
+ROUTE_TILE = 2048
+ROUTE_SEED_TILE = 512
 ROUTE_MAX_FIELDS = 8
-ROUTE_MAX_DEST = 512
+ROUTE_MAX_DEST = 8192
 ROUTE_MAX_ROWS = 2**31 - 1
 
 log = logging.getLogger("nextdenovo_tpu_torch")
@@ -220,9 +226,10 @@ def bucketize(fields, dest: torch.Tensor, valid, n_shards: int, cap: int):
     beyond it are counted, never silently lost), counts[n_shards] the valid
     rows bound outside [0, n_shards).
 
-    CPU tensors run the plain version; CUDA tensors launch the
-    route_buckets kernel (csrc/route.cu) once, read the counts (one host
-    sync) and copy each bucket out of the kernel's output."""
+    CPU tensors run the plain version; CUDA tensors launch route_count,
+    read its totals (one host sync), allocate each bucket at its kept size
+    and launch route_scatter, which writes the rows into them (csrc/
+    route.cu).  A bucket's fields are rows of one (F, kept) tensor."""
     if dest.device.type == "cpu":
         return bucketize_plain(fields, dest, valid, n_shards, cap)
     dev = dest.device
@@ -232,50 +239,125 @@ def bucketize(fields, dest: torch.Tensor, valid, n_shards: int, cap: int):
         check_tensor(f"fields[{i}]", f, (N,), torch.int64, dev)
     if valid is not None:
         check_tensor("valid", valid, (N,), torch.bool, dev)
-    if not 1 <= F <= ROUTE_MAX_FIELDS or not 1 <= n_shards <= ROUTE_MAX_DEST:
-        raise ValueError(f"route_buckets: {F} fields (1..{ROUTE_MAX_FIELDS})"
-                         f" to {n_shards} destinations (1..{ROUTE_MAX_DEST})")
-    if N > ROUTE_MAX_ROWS:
-        raise ValueError(f"route_buckets: {N} rows (at most "
-                         f"{ROUTE_MAX_ROWS})")
+    if not 1 <= F <= ROUTE_MAX_FIELDS:
+        raise ValueError(f"route_scatter: {F} fields (1..{ROUTE_MAX_FIELDS})")
+    check_route(N, n_shards)
     if N == 0:
         empty = tuple(f[:0] for f in fields)
         return [empty] * n_shards, np.zeros(n_shards + 1, np.int64)
-    out, counts = _route_launch(fields, dest, valid, n_shards, cap)
-    _build.count_launch("route_buckets", dev)
-    counts = counts.cpu().numpy()
-    kept = np.minimum(counts[:n_shards], cap)
-    starts = np.concatenate([[0], np.cumsum(kept)])
-    # a bucket is a copy of its rows: views would hold the whole output
-    # until every destination had taken its bucket
-    return [out[:, starts[d]:starts[d + 1]].clone().unbind(0)
-            for d in range(n_shards)], counts
+    return route_call(dev, bucket_launches(_build.kernels(), fields, dest,
+                                           valid, n_shards, cap))
 
 
-def _route_launch(fields, dest, valid, n_shards: int, cap: int):
-    """One launch of the route_buckets kernel on checked inputs of N > 0
-    rows, no host sync: (out (F, N) int64, the buckets one after the other,
-    counts (n_shards + 1,) int64 on the device)."""
-    dev, N, F = dest.device, dest.shape[0], len(fields)
-    lib = _build.kernels()
-    out = torch.empty((F, N), dtype=torch.int64, device=dev)
-    counts = torch.empty(n_shards + 1, dtype=torch.int64, device=dev)
+class RouteLaunches(NamedTuple):
+    """A routing call's two launches on checked inputs: `count(scratch,
+    ticket, stream)` launches `name`_count, `scatter(scratch, addresses,
+    stream)` launches `name`_scatter; each returns the C entry's error
+    code.  `rows` key rows in `tiles` tiles to n destinations, F fields a
+    bucket."""
+    name: str
+    rows: int
+    tiles: int
+    n: int
+    cap: int
+    F: int
+    count: Callable
+    scatter: Callable
+
+
+def bucket_launches(lib, fields, dest, valid, n_shards: int,
+                    cap: int) -> RouteLaunches:
+    """bucketize's launches of route_count and route_scatter from `lib`."""
+    N, F = dest.shape[0], len(fields)
+    ptrs = (ctypes.c_void_p * F)(*[f.data_ptr() for f in fields])
+    return RouteLaunches(
+        "route", N, -(-N // ROUTE_TILE), n_shards, cap, F,
+        lambda sc, ticket, stream: lib.ndt_route_count(
+            dest.data_ptr(), None if valid is None else valid.data_ptr(), N,
+            n_shards, sc.keys, sc.blk, ticket, sc.counts.data_ptr(), stream),
+        lambda sc, dst, stream: lib.ndt_route_scatter(
+            ptrs, F, sc.keys, sc.blk, sc.counts.data_ptr(), N, n_shards,
+            min(cap, N), dst, sc.table, stream))
+
+
+def route_call(dev, rl: RouteLaunches):
+    """A call of the routing kernels: the count, the host reads its totals
+    (the call's one sync), each bucket is allocated at its kept size, and
+    the scatter into them.  Returns (buckets, counts) as bucketize does."""
     with torch.cuda.device(dev):
-        blocks = lib.ndt_route_blocks(n_shards)
-        if blocks < 0:
-            _build.check_launch("route_buckets", -blocks)
-        blocks = min(blocks, -(-N // ROUTE_THREADS))
-        scratch = torch.empty(1 + blocks * (n_shards + 1), dtype=torch.int32,
-                              device=dev)
-        ptrs = (ctypes.c_void_p * F)(*[f.data_ptr() for f in fields])
-        rc = lib.ndt_route_buckets(
-            ptrs, F, dest.data_ptr(),
-            None if valid is None else valid.data_ptr(), N, n_shards,
-            min(cap, N), out.data_ptr(), N, counts.data_ptr(),
-            scratch.data_ptr(), blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check_launch("route_buckets", rc)
-    return out, counts
+        sc = route_scratch(dev, rl.rows, rl.tiles, rl.n)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check_launch(f"{rl.name}_count",
+                            rl.count(sc, route_ticket(dev), stream))
+        _build.count_launch(f"{rl.name}_count", dev)
+        counts = sc.counts.cpu().numpy()
+        out, dst = route_buckets(counts, rl.n, rl.cap, rl.F, dev)
+        _build.check_launch(f"{rl.name}_scatter", rl.scatter(sc, dst, stream))
+        _build.count_launch(f"{rl.name}_scatter", dev)
+    return [b.unbind(0) for b in out], counts
+
+
+def check_route(rows: int, n_shards: int) -> None:
+    """Raise where the routing kernels do not take `rows` rows to
+    `n_shards` destinations."""
+    if not 1 <= n_shards <= ROUTE_MAX_DEST:
+        raise ValueError(f"the routing kernels take 1..{ROUTE_MAX_DEST} "
+                         f"destinations, not {n_shards}")
+    if rows > ROUTE_MAX_ROWS:
+        raise ValueError(f"the routing kernels take at most "
+                         f"{ROUTE_MAX_ROWS} rows, not {rows}")
+
+
+class RouteScratch(NamedTuple):
+    """A routing call's device scratch: `buf` holds the tiles' counts
+    (int32, at `blk`), the rows' 2-byte keys (at `keys`, 16-byte aligned) and
+    the buckets' pointer table (at `table`, read past 64 destinations);
+    `counts` (n + 1,) int64 receives the totals."""
+    buf: torch.Tensor
+    counts: torch.Tensor
+    blk: int
+    keys: int
+    table: int
+
+
+def route_scratch(dev, rows: int, tiles: int, n: int) -> RouteScratch:
+    """The scratch of a routing call of `rows` key rows in `tiles` tiles to
+    n destinations, in one allocation."""
+    blk_words = -(-tiles * (n + 1) // 4) * 2    # int64 words, even
+    key_words = -(-rows // 4)
+    buf = torch.empty(blk_words + key_words + n, dtype=torch.int64,
+                      device=dev)
+    counts = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    p = buf.data_ptr()
+    return RouteScratch(buf, counts, p, p + 8 * blk_words,
+                        p + 8 * (blk_words + key_words))
+
+
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_ticket_lock = threading.Lock()
+
+
+def route_ticket(dev) -> int:
+    """The address of the count kernels' ticket for dev's current stream:
+    a word that is 0 between launches (the last block of a launch sets it
+    back), one a stream, since the launches of one stream run one after
+    the other.  Made (zeroed on that stream) at the stream's first call."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    t = _tickets.get(key)
+    if t is None:
+        with _ticket_lock:
+            t = _tickets.setdefault(
+                key, torch.zeros(4, dtype=torch.int32, device=dev))
+    return t.data_ptr()
+
+
+def route_buckets(counts: np.ndarray, n: int, cap: int, F: int, dev):
+    """Each destination's bucket at its kept size, (F, min(counts[d], cap))
+    int64, and the table of their addresses that route_scatter takes."""
+    kept = np.minimum(counts[:n], cap)
+    out = [torch.empty((F, int(k)), dtype=torch.int64, device=dev)
+           for k in kept]
+    return out, (ctypes.c_void_p * n)(*[o.data_ptr() for o in out])
 
 
 def bucket_drops(counts: np.ndarray, cap: int) -> int:

@@ -138,7 +138,8 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
         ["myers_fwd", "myers_tb", "wave_fwd", "wave_tb", "ext_fwd",
          "wave_fast_fwd", "wave_fast_tb", "engine_anchor", "vote_corridor",
          "chain_emit", "sketch_minimizers", "hpc_compress",
-         "myers_streams", "route_buckets", "seed_symmetrize"])
+         "myers_streams", "route_count", "route_scatter",
+         "seed_route_count", "seed_route_scatter"])
     for mod, name in ((myers, "myers_fwd_plain"), (myers, "myers_tb_plain"),
                       (align, "wave_fwd_plain"), (align, "wave_tb_plain"),
                       (align, "wave_fast_fwd_plain"),
@@ -152,6 +153,7 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
                       (myers, "build_streams_plain"),
                       (mesh, "bucketize_plain"),
                       (dist_sort, "seed_symmetrize_plain"),
+                      (dist_sort, "seed_route_plain"),
                       (dist_overlap, "_lookup_plain")):
         monkeypatch.setattr(mod, name,
                             lambda *a, **k: called.append(1))
@@ -203,9 +205,9 @@ def test_cuda_tensor_path_never_takes_plain_version(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         mesh.bucketize((m64(6), m64(6)), m64(6), None, 2, 4)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        dist_sort.seed_symmetrize(m64(3, 8),
-                                  torch.empty(5, dtype=torch.bool,
-                                              device="meta"), m64(5), 2)
+        dist_sort.seed_route(m64(3, 8),
+                             torch.empty(5, dtype=torch.bool, device="meta"),
+                             m64(5), 2, 4)
     ix = dist_overlap.IndexShard(m64(5), meta(5), meta(5), meta(2))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         dist_overlap._lookup((m64(6),) * 4, ix, None,

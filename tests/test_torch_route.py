@@ -1,16 +1,23 @@
-"""The mesh path's routing, lookup and symmetrize pass on the CPU
+"""The mesh path's routing, lookup and seed route on the CPU
 (nextdenovo_tpu_torch/parallel/: mesh.bucketize_plain, dist_overlap's
-_lookup through engine_anchor's plain version, dist_sort.seed_symmetrize),
-each against a model: bucketize against a numpy model of the reference's
-per-destination jnp.nonzero(size=cap), and a numpy model of the
-route_buckets kernel (csrc/route.cu: blocks over chunks of rows, counts per
-block, a warp's rank by its group of equal destinations, the warps before
-it and the rounds before) against bucketize_plain; the lookup as
-engine_anchor computes it (each minimizer a query row, the index shard's
-packed positions, the qmask extended) against the plain lookup, with and
-without the pair-once gate; the symmetrize pass against the JAX package's
-distributed_seed_sort_step and a numpy model of the seed_symmetrize
-kernel.  Inputs made from a seed with numpy.  Tolerance: exact equality."""
+_lookup through engine_anchor's plain version, dist_sort.seed_route_plain
+and seed_symmetrize_plain), each against a model: bucketize against a numpy
+model of the reference's per-destination jnp.nonzero(size=cap); a numpy
+model of the routing kernels of csrc/route.cu (route_count: tiles of rows,
+2-byte keys, each tile's counts, the last block's scan of the tiles by
+groups; route_scatter: a tile's ranks by __match_any_sync steps and warp
+counters, the block scan into each destination's run, the kept rows staged
+by slot and written through a pointer table into buckets of their kept
+size) against bucketize_plain, at several tile sizes and at the kernels'
+tile of 2048 rows (n up to 4096, cap 0, every row outside, a short last
+tile); the same for the seed route (both views' keys from one record, two
+view tiles a record tile, the views' fields made from the records) against
+seed_symmetrize_plain then bucketize_plain; the lookup as engine_anchor
+computes it (each minimizer a query row, the index shard's packed
+positions, the qmask extended) against the plain lookup, with and without
+the pair-once gate; the views and the seed route against the JAX package's
+distributed_seed_sort_step.  Inputs made from a seed with numpy.
+Tolerance: exact equality."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,52 +48,182 @@ def _nonzero_model(fields, dest, valid, n, cap):
     return out, counts
 
 
-def _route_model(fields, dest, valid, n, cap, blocks, threads=256):
-    """The route_buckets kernel in numpy: the grid's chunks, each block's
-    counts, then per round of `threads` rows each warp's groups of one
-    destination, ranked by the warps before and the rounds before.
-    Returns the buckets cut from its (F, N) output as the wrapper cuts
-    them, and the counts."""
+TILE, SEED_TILE, THREADS, WARPS = tm.ROUTE_TILE, tm.ROUTE_SEED_TILE, 256, 8
+NONE = 0xFFFF
+# the target view's fields from a record's columns (t, rev, ts, te, q, qs,
+# qe, match), one column a nibble
+T_COLS = 0x73206514
+
+
+SCAN_INTS = 6144     # route.cu: the last block's chunk of the table
+
+
+def _scan_tiles_model(blk, threads=THREADS):
+    """route.cu's scan_tiles in the last count block: each tile's exclusive
+    prefix a column, and the columns' totals.  Narrow tables: chunks of
+    SCAN_INTS // n1 tiles, each column's tiles of a chunk in groups (one
+    thread a group and column), the column's carry from chunk to chunk;
+    wide ones: a thread a column."""
+    tiles, n1 = blk.shape
+    out = np.zeros_like(blk)
+    if n1 > threads // 2:
+        run = np.zeros(n1, np.int64)
+        for b in range(tiles):
+            out[b] = run
+            run = run + blk[b]
+        return out, run
+    G, TB = threads // n1, SCAN_INTS // n1
+    carry = np.zeros(n1, np.int64)
+    for c0 in range(0, tiles, TB):
+        tab = blk[c0:c0 + TB]
+        nb = len(tab)
+        seg = -(-nb // G)
+        bounds = [(min(nb, g * seg), min(nb, min(nb, g * seg) + seg))
+                  for g in range(G)]
+        part = np.stack([tab[b0:b1].sum(0) for b0, b1 in bounds])
+        first = carry + np.cumsum(part, 0) - part
+        carry = carry + part.sum(0)
+        for g, (b0, b1) in enumerate(bounds):
+            run = first[g].copy()
+            for b in range(b0, b1):
+                out[c0 + b] = run
+                run = run + tab[b]
+    return out, carry
+
+
+def _block_scan_model(a, threads=THREADS):
+    """route.cu's block_exclusive_scan: a run of ceil(n / threads) entries
+    a thread, the threads' sums scanned."""
+    n = len(a)
+    per = -(-n // threads)
+    spans = [(min(n, t * per), min(n, min(n, t * per) + per))
+             for t in range(threads)]
+    sums = np.array([a[b0:b1].sum() for b0, b1 in spans], np.int64)
+    before = np.cumsum(sums) - sums
+    out = np.zeros(n, np.int64)
+    for (b0, b1), run in zip(spans, before):
+        out[b0:b1] = run + np.cumsum(a[b0:b1]) - a[b0:b1]
+    return out, int(sums.sum())
+
+
+def _rank_tile_model(skey, n, first, cap):
+    """route_scatter's ranking of one tile of keys (NONE past its rows):
+    each warp's rows in steps of 32 lanes, __match_any_sync's lanes below
+    and a counter a destination; the warps' counters scanned, the tile's
+    runs by destination; each row's slot, kept where its bucket position
+    is below cap.  Returns (slot a row, NONE where not kept; the
+    destination of each slot; sbase; the routed rows)."""
+    steps = len(skey) // (WARPS * 32)
+    kk = skey.reshape(WARPS, steps, 32)
+    wcnt = np.zeros((WARPS, n), np.int64)
+    rk = np.zeros((WARPS, steps, 32), np.int64)
+    below_mask = np.tril(np.ones((32, 32), bool), -1)    # lane l' < l
+    for j in range(steps):
+        k = kk[:, j, :]
+        routed = k < n
+        kc = np.where(routed, k, 0)
+        peers = (k[:, :, None] == k[:, None, :]) & below_mask
+        base = np.where(routed, np.take_along_axis(wcnt, kc, 1), 0)
+        rk[:, j, :] = base + peers.sum(2)
+        for w in range(WARPS):
+            np.add.at(wcnt[w], k[w][routed[w]], 1)
+    before_w = np.cumsum(wcnt, 0) - wcnt
+    tstart, routed_rows = _block_scan_model(wcnt.sum(0))
+    wc = before_w + tstart
+    sbase = first - tstart
+    routed = kk < n
+    kc = np.where(routed, kk, 0)
+    sl = np.take_along_axis(wc, kc.reshape(WARPS, -1), 1).reshape(kk.shape) \
+        + rk
+    sdest = np.full(len(skey), NONE, np.int64)
+    sdest[sl[routed]] = kk[routed]
+    kept = routed & (sl + sbase[kc] < cap)
+    return np.where(kept, sl, NONE).ravel(), sdest, sbase, routed_rows
+
+
+def _scatter_model(tiles, tile, keys, values, n, F, first, counts, cap):
+    """route_scatter: each tile ranked (_rank_tile_model), each field's kept
+    rows staged at their slots and each slot written at its bucket's
+    address (a pointer table into one memory, guard words between the
+    buckets that no write may touch).  tiles: (lo, rows) of each tile;
+    values(i, rows) the field i of the key rows `rows`.  Returns the
+    buckets read back from the memory."""
+    kept = np.minimum(counts[:n], cap)
+    table = np.concatenate([[0], np.cumsum(F * kept + 3)])[:-1] + 3
+    mem = np.full(int(table[-1] + F * kept[-1] + 3), -7, np.int64)
+    for b, (lo, rows) in enumerate(tiles):
+        skey = np.full(tile, NONE, np.int64)
+        skey[:rows] = keys[lo:lo + rows]
+        slot, sdest, sbase, routed = _rank_tile_model(skey, n, first[b, :n],
+                                                      cap)
+        sl = np.arange(routed)
+        d = sdest[sl]
+        pos = sl + sbase[d]
+        out = pos < cap
+        assert (pos >= 0).all()
+        has = slot[:rows] != NONE
+        for i in range(F):
+            stage = np.full(len(skey), -9, np.int64)
+            stage[slot[:rows][has]] = values(i, np.arange(lo, lo + rows))[has]
+            addr = table[d[out]] + i * kept[d[out]] + pos[out]
+            mem[addr] = stage[sl[out]]
+    got = [mem[t:t + F * k].reshape(F, k) for t, k in zip(table, kept)]
+    guard = np.ones(len(mem), bool)
+    for t, k in zip(table, kept):
+        guard[t:t + F * k] = False
+    assert (mem[guard] == -7).all()
+    return got
+
+
+def _route_model(fields, dest, valid, n, cap, tile=TILE):
+    """route_count and route_scatter in numpy, rows in tiles of `tile`
+    (a multiple of 256: WARPS warps x steps x 32 lanes; the kernels' is
+    2048): keys (d, n outside, NONE not valid), each tile's counts, the
+    last block's scan, then each tile's scatter.  Returns the buckets and
+    the counts."""
     N, F = len(dest), len(fields)
-    per = -(-N // blocks)
-    chunk = max(32, -(-per // 32) * 32)
     valid = np.ones(N, bool) if valid is None else valid
-    key = np.where(valid, np.where((dest >= 0) & (dest < n), dest, n), -1)
-    blk = np.zeros((blocks, n + 1), np.int64)
-    bounds = [(min(N, b * chunk), min(N, b * chunk + chunk))
-              for b in range(blocks)]
-    for b, (lo, hi) in enumerate(bounds):
-        k = key[lo:hi]
-        blk[b] = np.bincount(k[k >= 0], minlength=n + 1)
-    tot = blk.sum(0)
-    kept = np.minimum(tot[:n], cap)
-    start = np.concatenate([[0], np.cumsum(kept)])
-    out = np.full((F, N), -7, np.int64)
-    for b, (lo, hi) in enumerate(bounds):
-        base = blk[:b].sum(0)[:n].copy()
-        for r0 in range(lo, hi, threads):
-            rows = np.arange(r0, r0 + threads)
-            kk = np.where(rows < hi, key[np.minimum(rows, N - 1)], -1)
-            kk = np.where(kk == n, -1, kk)
-            wk = kk.reshape(-1, 32)
-            wcnt = np.zeros((len(wk), n), np.int64)
-            below = np.zeros_like(wk)
-            for w, lanes in enumerate(wk):
-                for lane, k in enumerate(lanes):
-                    if k >= 0:
-                        below[w, lane] = (lanes[:lane] == k).sum()
-                        wcnt[w, k] += 1
-            first = base + np.cumsum(wcnt, 0) - wcnt
-            base += wcnt.sum(0)
-            for i, r in enumerate(rows):
-                k = kk[i]
-                if k < 0:
-                    continue
-                rank = first[i // 32, k] + below.ravel()[i]
-                if rank < cap:
-                    out[:, start[k] + rank] = [f[r] for f in fields]
-    return [[out[f, start[d]:start[d + 1]] for f in range(F)]
-            for d in range(n)], tot
+    keys = np.where(valid, np.where((dest >= 0) & (dest < n), dest, n), NONE)
+    tiles = [(lo, min(tile, N - lo)) for lo in range(0, N, tile)]
+    blk = np.stack([np.bincount(keys[lo:lo + r][keys[lo:lo + r] != NONE],
+                                minlength=n + 1) for lo, r in tiles])
+    first, counts = _scan_tiles_model(blk)
+    got = _scatter_model(tiles, tile, keys, lambda i, rows: fields[i][rows],
+                         n, F, first, counts, cap)
+    return [list(g) for g in got], counts
+
+
+def _seed_route_model(rec, is_seed, lens, n, cap, tile=SEED_TILE):
+    """seed_route_count and seed_route_scatter in numpy, records in tiles of
+    `tile` (the kernels' is 512): a record tile makes both views' keys from
+    one read (the keep gate, each side's clamped gathers, the seed floor-mod
+    n) and counts into two view tiles (query views first, then target
+    views); the scatter builds each kept view's fields from its record (the
+    target view's columns T_COLS, ends made inclusive)."""
+    R = len(rec)
+    q, qs, qe, t, ts, te = (rec[:, c] for c in (0, 2, 3, 4, 5, 6))
+    keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
+    top = len(lens) - 1
+    sq, st = np.clip(q, 0, top), np.clip(t, 0, top)
+    vq = keep & is_seed[sq] & (lens[sq] >= qe)
+    vt = keep & is_seed[st] & (lens[st] >= te)
+    fmod = lambda x: np.where(np.fmod(x, n) < 0, np.fmod(x, n) + n,
+                              np.fmod(x, n))
+    keys = np.concatenate([np.where(vq, fmod(q), NONE),
+                           np.where(vt, fmod(t), NONE)])
+    rt = [(lo, min(tile, R - lo)) for lo in range(0, R, tile)]
+    tiles = rt + [(R + lo, r) for lo, r in rt]
+    blk = np.stack([np.bincount(keys[lo:lo + r][keys[lo:lo + r] != NONE],
+                                minlength=n + 1) for lo, r in tiles])
+    first, counts = _scan_tiles_model(blk)
+
+    def values(i, rows):
+        side = rows >= R
+        col = np.where(side, (T_COLS >> (4 * i)) & 15, i)
+        return rec[rows - side * R, col] - (1 if i in (3, 6) else 0)
+
+    got = _scatter_model(tiles, tile, keys, values, n, 8, first, counts, cap)
+    return [list(g) for g in got], counts
 
 
 def _route_case(seed, N, n, F, outside=0.0, valid_p=None):
@@ -133,21 +270,93 @@ def test_bucketize_plain_equals_nonzero(case):
         assert wcounts[n] > 0 and (wcounts[:n] > cap).any()
 
 
-@pytest.mark.parametrize("case", [c for c in CASES if c != "n0_rows"])
-@pytest.mark.parametrize("blocks", [1, 3, 7, 64])
-def test_route_kernel_model_equals_plain(case, blocks):
-    seed, N, n, F, outside, vp = CASES[case]
-    fields, dest, valid = _route_case(seed, N, n, F, outside, vp)
-    cap = CAPS[case]
-    got, counts = _route_model(fields, dest, valid, n, cap, blocks)
+def _tile_for(N, blocks):
+    """Rows a tile for about `blocks` tiles over N rows: a multiple of 256
+    (WARPS warps x 32 lanes x steps), at most the kernels' TILE."""
+    return min(TILE, 256 * max(1, -(-N // blocks // 256)))
+
+
+def _same_as_plain(got, counts, fields, dest, valid, n, cap):
     t = torch.from_numpy
     want, wcounts = tm.bucketize_plain([t(f) for f in fields], t(dest),
                                        None if valid is None else t(valid),
                                        n, cap)
     assert np.array_equal(counts, wcounts)
     for d in range(n):
+        assert len(got[d]) == len(fields)
         for a, b in zip(got[d], want[d]):
             assert np.array_equal(a, b.numpy())
+    return wcounts
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c != "n0_rows"])
+@pytest.mark.parametrize("blocks", [1, 3, 7, 64])
+def test_route_kernel_model_equals_plain(case, blocks):
+    """The model of route_count and route_scatter at about `blocks` tiles
+    equals bucketize_plain, buckets and counts."""
+    seed, N, n, F, outside, vp = CASES[case]
+    fields, dest, valid = _route_case(seed, N, n, F, outside, vp)
+    cap = CAPS[case]
+    got, counts = _route_model(fields, dest, valid, n, cap,
+                               _tile_for(N, blocks))
+    _same_as_plain(got, counts, fields, dest, valid, n, cap)
+
+
+# (seed, N, n, F, outside, valid_p, cap) at the kernels' tile
+TILE_CASES = {
+    "n512": (41, 9000, 512, 2, 0.02, 0.9, 10**6),
+    "n4096": (42, 12000, 4096, 3, 0.01, 0.95, 10**6),
+    "n4096_truncating": (43, 9000, 4096, 1, 0.0, None, 1),
+    "cap0": (44, 5000, 8, 4, 0.05, 0.8, 0),
+    "all_outside": (45, 3000, 8, 3, 1.0, None, 100),
+    "N_not_a_tile_multiple": (46, 3 * 2048 + 777, 8, 5, 0.03, 0.7, 10**6),
+    "one_destination_most_rows": (47, 2 * 2048, 8, 4, 0.0, None, 3000),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_route_kernel_model_tile_cases(case):
+    """The model at the kernels' tile of 2048 rows: many destinations (a
+    tile's keys mostly apart), cap 0, every row outside, a last tile cut
+    short, a bucket whose cap cuts inside a tile."""
+    seed, N, n, F, outside, vp, cap = TILE_CASES[case]
+    fields, dest, valid = _route_case(seed, N, n, F, outside, vp)
+    if case == "one_destination_most_rows":
+        dest[np.random.default_rng(seed).random(N) < 0.9] = 3
+    got, counts = _route_model(fields, dest, valid, n, cap)
+    wcounts = _same_as_plain(got, counts, fields, dest, valid, n, cap)
+    if case == "all_outside":
+        assert wcounts[n] == N and not wcounts[:n].any()
+    if case == "cap0":
+        assert wcounts[:n].sum() > 0
+    if case == "one_destination_most_rows":
+        assert wcounts[3] > cap > wcounts[3] - TILE
+
+
+def test_route_kernel_model_scan_chunks():
+    """The model where the last block scans its table in several chunks
+    (127 destinations: 48 tiles a chunk; 118 tiles of 256 rows)."""
+    fields, dest, valid = _route_case(49, 30000, 127, 2, 0.02, 0.9)
+    assert -(-30000 // 256) > 2 * (SCAN_INTS // 128)
+    got, counts = _route_model(fields, dest, valid, 127, 10**6, 256)
+    _same_as_plain(got, counts, fields, dest, valid, 127, 10**6)
+
+
+def test_scan_tiles_model_groups():
+    """The scan's chunks and groups of tiles, narrow and wide: each tile's
+    exclusive prefix and the totals equal a plain cumulative sum, also
+    where the tiles are fewer than the groups and over several chunks."""
+    rng = np.random.default_rng(48)
+    for tiles, n1 in ((1, 2), (5, 9), (650, 9), (1769, 6), (2100, 9),
+                      (37, 128), (3, 129), (20, 4097)):
+        blk = rng.integers(0, 300, (tiles, n1))
+        first, tot = _scan_tiles_model(blk)
+        assert np.array_equal(first, np.cumsum(blk, 0) - blk)
+        assert np.array_equal(tot, blk.sum(0))
+    for n in (1, 7, 256, 300, 4096):
+        a = rng.integers(0, 50, n)
+        got, total = _block_scan_model(a)
+        assert np.array_equal(got, np.cumsum(a) - a) and total == a.sum()
 
 
 def test_bucketize_cpu_takes_plain():
@@ -280,8 +489,8 @@ def _raw_records(rng, R, n_reads, negative=False):
 
 
 def _sym_model(rec, is_seed, lens, n):
-    """The seed_symmetrize kernel, record by record, in numpy (the
-    destination a truncated % made non-negative)."""
+    """The views as the seed route's kernels make them, record by record,
+    in numpy (the destination a truncated % made non-negative)."""
     q, rev, qs, qe, t, ts, te, match = rec.T
     keep = (q != t) & (qe - qs >= 500) & (te - ts >= 500)
     top = len(lens) - 1
@@ -299,7 +508,7 @@ def _sym_model(rec, is_seed, lens, n):
 def test_symmetrize_kernel_model(n):
     rng = np.random.default_rng(20 + n)
     rec, is_seed, lens = _raw_records(rng, 2000, 80, negative=True)
-    cols, valid, dest = tds.seed_symmetrize(
+    cols, valid, dest = tds.seed_symmetrize_plain(
         torch.from_numpy(rec), torch.from_numpy(is_seed),
         torch.from_numpy(lens), n)
     mc, mv, md = _sym_model(rec, is_seed, lens, n)
@@ -324,11 +533,82 @@ def test_symmetrize_equals_jax_step():
     cols = [np.asarray(x) for x in out[:8]]
     keep = cols[0] != I32MAX
     jrows = np.stack([c[keep] for c in cols], 1).astype(np.int64)
-    tc, tv, _ = tds.seed_symmetrize(torch.from_numpy(rec),
-                                    torch.from_numpy(is_seed),
-                                    torch.from_numpy(lens), 1)
+    tc, tv, _ = tds.seed_symmetrize_plain(torch.from_numpy(rec),
+                                          torch.from_numpy(is_seed),
+                                          torch.from_numpy(lens), 1)
     trows = tc.numpy()[:, tv.numpy()].T
     order = lambda x: x[np.lexsort(x.T[::-1])]
     assert len(trows) > 100 and int(np.asarray(out[9]).ravel()[0]) == \
         len(trows)
+    assert np.array_equal(order(jrows), order(trows))
+
+
+# ---------------------------------------------------------------------------
+# the seed route: seed_route_count and seed_route_scatter
+
+
+SEED_CASES = {"n1": (1, SEED_TILE, 10**6), "n2": (2, TILE, 10**6),
+              "n8": (8, SEED_TILE, 10**6), "n8_truncating": (8, TILE, 150),
+              "n512": (512, SEED_TILE, 10**6)}
+
+
+@pytest.mark.parametrize("case", list(SEED_CASES))
+def test_seed_route_model_equals_plain(case):
+    """The model of the fused seed route at the kernels' tile and at 2048
+    (2500 records, not a multiple of either; ids negative, past the reads
+    and equal) equals
+    seed_symmetrize_plain then bucketize_plain, buckets and counts."""
+    n, tile, cap = SEED_CASES[case]
+    rng = np.random.default_rng(50 + n)
+    rec, is_seed, lens = _raw_records(rng, 2500, 90, negative=True)
+    got, counts = _seed_route_model(rec, is_seed, lens, n, cap, tile)
+    t = torch.from_numpy
+    want, wcounts = tds.seed_route_plain(t(rec), t(is_seed), t(lens), n, cap)
+    assert np.array_equal(counts, wcounts) and wcounts[n] == 0
+    for d in range(n):
+        assert len(got[d]) == 8
+        for a, b in zip(got[d], want[d]):
+            assert np.array_equal(a, b.numpy())
+    cols, valid, dest = tds.seed_symmetrize_plain(t(rec), t(is_seed),
+                                                  t(lens), n)
+    assert wcounts.sum() == int(valid.sum()) > 500
+    if case == "n8_truncating":
+        assert (wcounts[:n] > cap).any()
+
+
+def test_seed_route_cpu_takes_plain():
+    rng = np.random.default_rng(60)
+    rec, is_seed, lens = _raw_records(rng, 700, 40)
+    t = torch.from_numpy
+    args = (t(rec), t(is_seed), t(lens), 4, 90)
+    a, ca = tds.seed_route(*args)
+    b, cb = tds.seed_route_plain(*args)
+    assert np.array_equal(ca, cb)
+    for x, y in zip(a, b):
+        assert len(x) == 8
+        for u, v in zip(x, y):
+            assert torch.equal(u, v)
+
+
+def test_seed_route_equals_jax_step():
+    """seed_route on one shard holds the records the JAX package's
+    distributed_seed_sort_step (one shard, a cap that drops none) routes
+    and sorts, as a multiset, and counts them as its n_sent."""
+    rng = np.random.default_rng(31)
+    R, n_reads = 1500, 70
+    rec, is_seed, lens = _raw_records(rng, R, n_reads)
+    out = jds.distributed_seed_sort_step(
+        jnp.asarray(rec.astype(np.int32)), jnp.asarray(is_seed),
+        jnp.asarray(lens.astype(np.int32)), cap_route=2 * R + 8, mesh=None,
+        n_shards=1)
+    cols = [np.asarray(x) for x in out[:8]]
+    keep = cols[0] != I32MAX
+    jrows = np.stack([c[keep] for c in cols], 1).astype(np.int64)
+    buckets, counts = tds.seed_route(torch.from_numpy(rec),
+                                     torch.from_numpy(is_seed),
+                                     torch.from_numpy(lens), 1, 2 * R + 8)
+    trows = torch.stack(buckets[0], 1).numpy()
+    order = lambda x: x[np.lexsort(x.T[::-1])]
+    assert int(np.asarray(out[9]).ravel()[0]) == int(counts.sum()) \
+        == len(trows) > 100
     assert np.array_equal(order(jrows), order(trows))
